@@ -1,0 +1,191 @@
+"""The port's attention (weclip_tpu_torch/ops/attention*.py) against the JAX
+package: the plain versions of kernels K1-K3 against the Pallas kernels in
+interpret mode, and the plain MHA against the XLA formulation.
+
+Inputs come from numpy seeds and go to both packages.  Tolerances: 2e-5
+for fp32 forwards and 5e-4 for gradients (the calibration of
+tests/test_pallas_attention.py), 2e-2 where both sides round to bf16
+(one bf16 ulp at |x| <= 2 is 1.6e-2)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from weclip_tpu.core import precision as jprec
+from weclip_tpu.ops import attention as jattn
+from weclip_tpu.ops import pallas_attention as jpal
+from weclip_tpu_torch.core import precision as tprec
+from weclip_tpu_torch.ops import attention as tattn
+from weclip_tpu_torch.ops import attention_kernels as tak
+
+F32_TOL = 2e-5
+GRAD_TOL = 5e-4
+BF16_TOL = 2e-2
+
+
+def _qkv_mask(seed, b, h, l, dh, n_valid):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, h, l, dh)).astype(np.float32)
+               for _ in range(3))
+    kmask = np.zeros((b, l), np.float32)
+    for i, nv in enumerate(n_valid):
+        kmask[i, :nv] = 1.0
+    return q, k, v, kmask
+
+
+def _mha_params(seed, d):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) * 0.1
+            for s in ((3 * d, d), (3 * d,), (d, d), (d,))]
+    return (jattn.MhaParams(*map(jnp.asarray, arrs)),
+            tattn.MhaParams(*map(torch.from_numpy, arrs)))
+
+
+@pytest.mark.parametrize("export", [True, False])
+@pytest.mark.parametrize("dh", [32, 64])
+def test_attention_core_plain_matches_pallas(export, dh):
+    """(a) K1/K2's plain version vs attention_core_pallas(interpret=True),
+    ragged L with masked keys and one all-masked row."""
+    b, h, l = 3, 2, 40
+    q, k, v, kmask = _qkv_mask(0, b, h, l, dh, n_valid=(40, 23, 0))
+    ref_out, ref_map = jpal.attention_core_pallas(
+        *map(jnp.asarray, (q, k, v, kmask)), h, interpret=True,
+        score_dtype=jnp.float32, export_weights=export)
+    out, amap = tak.attention_core(*map(torch.from_numpy, (q, k, v, kmask)),
+                                   export_weights=export)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out),
+                               rtol=F32_TOL, atol=F32_TOL)
+    if export:
+        np.testing.assert_allclose(amap.numpy(), np.asarray(ref_map),
+                                   rtol=F32_TOL, atol=F32_TOL)
+    else:
+        assert amap is None and ref_map is None
+
+
+def test_attention_core_plain_matches_pallas_bf16():
+    """(a) the bf16 score path: both round q*scale, P (or exp) to bf16 at
+    the same points, so they differ by bf16 rounding of the output only."""
+    b, h, l, dh = 2, 2, 40, 64
+    q, k, v, kmask = _qkv_mask(1, b, h, l, dh, n_valid=(40, 17))
+    for export in (True, False):
+        ref_out, _ = jpal.attention_core_pallas(
+            *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+            jnp.asarray(kmask), h, interpret=True, score_dtype=jnp.bfloat16,
+            export_weights=export, out_dtype=jnp.bfloat16)
+        out, _ = tak.attention_core(
+            *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+            torch.from_numpy(kmask), export_weights=export)
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(ref_out, np.float32),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_attention_bwd_plain_matches_pallas():
+    """(b) K3's plain version vs attention_bwd_pallas(interpret=True)."""
+    b, h, l, dh = 2, 2, 36, 32
+    q, k, v, kmask = _qkv_mask(2, b, h, l, dh, n_valid=(36, 20))
+    do = np.random.default_rng(3).standard_normal((b, h, l, dh)).astype(np.float32)
+    qs = q * dh ** -0.5
+    ref = jpal.attention_bwd_pallas(*map(jnp.asarray, (qs, k, v, do, kmask)),
+                                    interpret=True, score_dtype=jnp.float32)
+    got = tak.attention_bwd(*map(torch.from_numpy, (qs, k, v, do, kmask)),
+                            score_dtype=torch.float32)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def test_mha_fused_grad_matches_jax_vjp():
+    """(b) the autograd.Function (plain forward/backward on CPU) inside the
+    fused MHA vs the JAX vjp of mha_with_weights_fused in interpret mode."""
+    b, l, d, h = 2, 24, 32, 2
+    jp, tp = _mha_params(4, d)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((b, l, d)).astype(np.float32)
+    valid = np.ones((b, l), bool)
+    valid[1, 15:] = False
+    cot = rng.standard_normal((b, l, d)).astype(np.float32)
+
+    def jfn(xx):
+        out, attn = jpal.mha_with_weights_fused(
+            xx, jp, h, valid=jnp.asarray(valid), policy=jprec.FP32,
+            interpret=True)
+        return out, attn
+
+    (ref_out, ref_attn), pull = jax.vjp(jfn, jnp.asarray(x))
+    (ref_dx,) = pull((jnp.asarray(cot), jnp.zeros_like(ref_attn)))
+
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out, attn = tak.mha_with_weights_fused(xt, tp, h, valid=torch.from_numpy(valid),
+                                           policy=tprec.FP32)
+    (dx,) = torch.autograd.grad(out, xt, torch.from_numpy(cot))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out),
+                               rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(attn.numpy(), np.asarray(ref_attn),
+                               rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(ref_dx),
+                               rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def test_attention_core_fn_matches_plain_autograd():
+    """(b) AttentionCoreFn's backward (the K3 formulation) vs autograd
+    through the plain forward, fp32, with masked keys."""
+    b, h, l, dh = 2, 2, 30, 32
+    q, k, v, kmask = _qkv_mask(6, b, h, l, dh, n_valid=(30, 11))
+    do = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (b, h, l, dh)).astype(np.float32))
+    km = torch.from_numpy(kmask)
+    ins = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out, amap = tak.AttentionCoreFn.apply(*ins, km)
+    assert not amap.requires_grad
+    g_fn = torch.autograd.grad(out, ins, do)
+    ins2 = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out2, _ = tak.attention_core_plain(*ins2, km, export_weights=True)
+    g_pl = torch.autograd.grad(out2, ins2, do)
+    for a, r in zip(g_fn, g_pl):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("want_weights", [True, False])
+def test_mha_with_weights_matches_xla(want_weights):
+    """The plain MHA (and mha_auto on CPU) vs the JAX XLA formulation."""
+    b, l, d, h = 2, 33, 32, 4
+    jp, tp = _mha_params(8, d)
+    x = np.random.default_rng(9).standard_normal((b, l, d)).astype(np.float32)
+    valid = np.ones((b, l), bool)
+    valid[0, 20:] = False
+    ref_out, ref_attn = jattn.mha_with_weights(
+        jnp.asarray(x), jp, h, valid=jnp.asarray(valid), policy=jprec.FP32)
+    out, attn = tattn.mha_auto(torch.from_numpy(x), tp, h,
+                               valid=torch.from_numpy(valid), policy=tprec.FP32,
+                               want_weights=want_weights)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out),
+                               rtol=F32_TOL, atol=F32_TOL)
+    if want_weights:
+        np.testing.assert_allclose(attn.numpy(), np.asarray(ref_attn),
+                                   rtol=F32_TOL, atol=F32_TOL)
+    else:
+        assert attn is None
+
+
+def test_kernel_mha_matches_plain_mha_on_cpu():
+    """mha_with_weights_kernel (the CUDA route's projections and masking,
+    with the plain core on CPU) agrees with the plain MHA."""
+    b, l, d, h = 2, 33, 32, 2
+    _, tp = _mha_params(10, d)
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (b, l, d)).astype(np.float32))
+    valid = torch.ones((b, l), dtype=torch.bool)
+    valid[1, 9:] = False
+    ref_out, ref_attn = tattn.mha_with_weights(x, tp, h, valid=valid,
+                                               policy=tprec.FP32)
+    out, attn = tak.mha_with_weights_kernel(x, tp, h, valid=valid,
+                                            policy=tprec.FP32)
+    np.testing.assert_allclose(out.numpy(), ref_out.numpy(), rtol=F32_TOL,
+                               atol=F32_TOL)
+    np.testing.assert_allclose(attn.numpy(), ref_attn.numpy(), rtol=F32_TOL,
+                               atol=F32_TOL)

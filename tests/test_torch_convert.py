@@ -1,0 +1,113 @@
+"""The port's weight conversion, its isolation from JAX, and its kernel
+wrappers' refusal to fall back (weclip_tpu_torch/convert.py, kernels.py)."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from tests import tiny
+from weclip_tpu.models import heads as jheads
+from weclip_tpu.models.clip import vit as jvit
+from weclip_tpu_torch import convert, kernels
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _np_tree(t):
+    return jax.tree_util.tree_map(np.asarray, t)
+
+
+def _assert_tree_equal(a, b, where=""):
+    assert set(a) == set(b), where
+    for k in a:
+        if isinstance(a[k], dict):
+            _assert_tree_equal(a[k], b[k], f"{where}.{k}")
+        else:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{where}.{k}")
+
+
+def test_convert_round_trip():
+    """(f) JAX trees -> port tensors -> numpy gives the same arrays back,
+    with blocks stacked on the leading axis and torch-layout attention."""
+    cfg = tiny.tiny_config()
+    visual = _np_tree(jvit.init_vision_params(jax.random.PRNGKey(0), cfg.clip))
+    head = _np_tree(jheads.init_head_params(jax.random.PRNGKey(1), n_layers=11,
+                                            in_dim=64, embed=32, num_classes=6))
+    tv = convert.visual_from_jax(visual)
+    th = convert.head_from_jax(head)
+    _assert_tree_equal(convert.to_numpy(tv), visual, "visual")
+    _assert_tree_equal(convert.to_numpy(th), head, "head")
+    assert tv["blocks"]["attn"]["in_w"].shape == (12, 3 * 64, 64)
+    assert th["fuse"]["proj1_w"].shape == (11, 32, 64)
+    assert all(t.dtype == torch.float32 for t in (tv["proj"], th["fuse"]["fuse_w"]))
+    frozen = {"visual": visual, "logit_scale": np.float32(2.5),
+              "fg_text": np.ones((5, 32), np.float32),
+              "bg_text": np.zeros((3, 32), np.float32)}
+    tf = convert.frozen_from_jax(frozen)
+    assert float(tf["logit_scale"]) == 2.5 and tf["bg_text"].shape == (3, 32)
+    assert convert.params_from_jax({"head": head})["head"]["decoder"]["pred_w"].shape == (6, 32)
+
+
+def test_convert_rejects_malformed_trees():
+    cfg = tiny.tiny_config()
+    visual = _np_tree(jvit.init_vision_params(jax.random.PRNGKey(0), cfg.clip))
+    broken = dict(visual)
+    del broken["ln_post"]
+    with pytest.raises(KeyError):
+        convert.visual_from_jax(broken)
+    ragged = dict(visual, blocks=dict(visual["blocks"],
+                                      ln_1={"g": np.ones((3, 64)), "b": np.ones((12, 64))}))
+    with pytest.raises(ValueError):
+        convert.visual_from_jax(ragged)
+    with pytest.raises(TypeError):
+        convert.visual_from_jax(dict(visual, proj=np.zeros((64, 32), np.int32)))
+    with pytest.raises(NotImplementedError):
+        convert.params_from_jax({"head": {}, "comer": {}})
+
+
+def test_port_imports_without_jax():
+    """(g) every module of the port imports with JAX blocked, and none of
+    the JAX package's modules gets imported."""
+    code = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+import weclip_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(weclip_tpu_torch.__path__,
+                                                 "weclip_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m == "weclip_tpu" or m.startswith("weclip_tpu."))
+assert not leaked, leaked
+assert len(names) >= 20, names
+print(len(names))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_kernel_build_needs_nvcc(monkeypatch):
+    """Without the CUDA toolkit the kernels cannot be built, and the build
+    says so instead of falling back."""
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", os.path.join(REPO, "no-such-toolkit"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.nvcc_path()
+
+
+def test_launch_counters_reset():
+    kernels.launches["par_affinity"] += 3
+    kernels.reset_launches()
+    assert set(kernels.launches) == {"attention_fwd_export", "attention_fwd",
+                                     "attention_bwd", "par_affinity", "par_propagate"}
+    assert not any(kernels.launches.values())

@@ -1,0 +1,89 @@
+"""The port's CUDA kernels (K1-K5) against their plain versions on the
+card.  These need a CUDA card with nvcc and skip elsewhere; run them there
+with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
+``chip_smoke.py`` holds the same kernels at the full inference shapes."""
+
+import numpy as np
+import pytest
+import torch
+
+from weclip_tpu_torch import kernels
+from weclip_tpu_torch.core.config import ParConfig
+from weclip_tpu_torch.ops import attention_kernels as ak
+from weclip_tpu_torch.refine import par as par_plain
+from weclip_tpu_torch.refine import par_kernels as pk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _qkv(card, b, h, l, dh, dtype, n_valid):
+    g = torch.Generator(device=card).manual_seed(0)
+    q, k, v = (torch.randn((b, h, l, dh), generator=g, device=card).to(dtype)
+               for _ in range(3))
+    km = torch.zeros((b, l), device=card)
+    for i, n in enumerate(n_valid):
+        km[i, :n] = 1.0
+    return q, k, v, km
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("export", [True, False])
+def test_attention_fwd_kernel_matches_plain(card, dtype, tol, dh, export):
+    q, k, v, km = _qkv(card, 3, 2, 77, dh, dtype, (77, 40, 0))
+    before = dict(kernels.launches)
+    out, amap = ak.attention_core(q, k, v, km, export_weights=export)
+    ref, ref_map = ak.attention_core_plain(q, k, v, km, export_weights=export)
+    name = "attention_fwd_export" if export else "attention_fwd"
+    assert kernels.launches[name] == before[name] + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if export:
+        torch.testing.assert_close(amap, ref_map, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4), (torch.bfloat16, 2e-2)])
+def test_attention_bwd_kernel_matches_plain(card, dtype, tol):
+    q, k, v, km = _qkv(card, 2, 2, 70, 64, dtype, (70, 33))
+    do = torch.randn(q.shape, device=card)
+    qs = q.float() * 64 ** -0.5
+    got = ak.attention_bwd(qs, k, v, do, km, dtype)
+    ref = ak.attention_bwd_plain(qs, k, v, do, km, dtype)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=tol, atol=tol)
+
+
+def test_par_kernels_match_plain(card):
+    cfg = ParConfig(num_iter=3)
+    g = torch.Generator(device=card).manual_seed(0)
+    imgs = torch.randn((2, 3, 40, 56), generator=g, device=card)
+    aff = pk.par_affinity(imgs, cfg)
+    torch.testing.assert_close(aff, par_plain.par_affinity(imgs, cfg),
+                               rtol=2e-5, atol=2e-5)
+    masks = torch.rand((2, 5, 40, 56), generator=g, device=card)
+    torch.testing.assert_close(pk.par_propagate(masks, aff, cfg),
+                               par_plain.par_propagate(masks, aff, cfg),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(card):
+    q, k, v, km = _qkv(card, 1, 2, 16, 48, torch.float32, (16,))
+    with pytest.raises(ValueError):
+        ak.attention_core(q, k, v, km)                       # Dh 48
+    q, k, v, km = _qkv(card, 1, 2, 16, 64, torch.float16, (16,))
+    with pytest.raises(ValueError):
+        ak.attention_core(q, k, v, km)                       # fp16
+    with pytest.raises(ValueError):
+        pk.par_affinity(torch.zeros((1, 3, 8, 8), device=card, dtype=torch.float64),
+                        ParConfig())
+    with pytest.raises(RuntimeError):                        # score rows > smem
+        ak.attention_core(*_qkv(card, 1, 2, 4096, 64, torch.float32, (4096,)))
+    # the refused request leaves no error behind for the next launch
+    assert np.isfinite(ak.attention_core(*_qkv(card, 1, 2, 16, 64, torch.float32,
+                                               (16,)))[0].cpu().numpy()).all()

@@ -1,0 +1,137 @@
+"""Build, load and count the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+happens at first use (or up front through ``build()``, which starts one
+``nvcc`` per source, all at once) into ``_build/`` beside this file; a
+library is named after a hash of its source and flags, so an edited source
+is rebuilt.  Every C entry point returns ``cudaGetLastError()`` after its
+launches, and ``call`` raises on anything but 0.
+
+``launches`` counts kernel launches by kernel name.  Only the wrappers in
+``ops/attention_kernels.py`` and ``refine/par_kernels.py`` add to it, at the
+point where they launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures: every function returns the cudaError_t of its launches
+SIGNATURES = {
+    "attention": {
+        # q, k, v, kbias, out, map, B, H, L, Dh, scale, bf16, export, stream
+        "attn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+        # q(pre-scaled), k, v, do, kbias, dq, dk, dv, stats, B, H, L, Dh,
+        # bf16, stream
+        "attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _P],
+    },
+    "par": {
+        # img, aff, posw, B, H, W, dilations, n_dil, w1, stream
+        "par_affinity": [_P, _P, _P, _I, _I, _I, _P, _I, _F, _P],
+        # src, dst, aff, B, C, H, W, dilations, n_dil, stream
+        "par_propagate": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+    },
+}
+
+# kernel name -> launches; see module docstring
+launches: Dict[str, int] = {
+    "attention_fwd_export": 0,   # K1
+    "attention_fwd": 0,          # K2
+    "attention_bwd": 0,          # K3
+    "par_affinity": 0,           # K4
+    "par_propagate": 0,          # K5
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    src = (_CSRC / f"{name}.cu").read_bytes()
+    common = (_CSRC / "common.cuh").read_bytes()
+    digest = hashlib.sha256(src + common + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile the named sources (default: all) in parallel, one nvcc each.
+
+    Returns seconds per source (0.0 for a library already built).  Raises
+    with the compiler's output if any build fails."""
+    names = list(SIGNATURES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, t0, took = {}, time.perf_counter(), {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            took[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+               str(_CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return took
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    if name not in _libs:
+        path = _lib_path(name)
+        if not path.exists():
+            build([name])
+        so = ctypes.CDLL(str(path))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(so, fn).argtypes = argtypes
+            getattr(so, fn).restype = ctypes.c_int
+        _libs[name] = so
+    return _libs[name]
+
+
+def call(name: str, fn: str, *args) -> int:
+    """Call ``fn`` of library ``name``; raise if it reports a CUDA error."""
+    rc = getattr(lib(name), fn)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}.{fn}: CUDA error {rc}")
+    return rc

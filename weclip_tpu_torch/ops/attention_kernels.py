@@ -1,0 +1,272 @@
+"""Attention kernels K1-K3 (port of weclip_tpu/ops/pallas_attention.py).
+
+Each wrapper sits beside its plain PyTorch version:
+
+- ``attention_core`` (K1 with the head-mean map, K2 without) /
+  ``attention_core_plain``;
+- ``attention_bwd`` (K3) / ``attention_bwd_plain``;
+- ``AttentionCoreFn``, the ``torch.autograd.Function`` whose forward is K1
+  and whose backward is K3 (the JAX ``custom_vjp`` attention_core_diff).
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches its kernel (csrc/attention.cu) or raises.  The TPU stream padding
+(``stream_pad_len``/``pad_stream``) is not ported: the kernels run at the
+true sequence length.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from weclip_tpu_torch import kernels
+from weclip_tpu_torch.core import precision
+from weclip_tpu_torch.ops.attention import MhaParams, qkv_project
+
+
+def _key_bias(kmask: torch.Tensor) -> torch.Tensor:
+    """(B, L) {0,1} mask -> additive fp32 bias: 0 valid, -1e30 masked."""
+    return (kmask.float() - 1.0) * 1e30
+
+
+def _check_cuda(name: str, kmask: torch.Tensor, *tensors: torch.Tensor) -> None:
+    """The kernels read ``tensors`` directly (CUDA, contiguous) and the key
+    bias built from ``kmask`` (CUDA, any layout)."""
+    for t in (kmask,) + tensors:
+        if t.device != tensors[0].device:
+            raise ValueError(f"{name}: expected tensors on one CUDA device, "
+                             f"got {t.device} and {tensors[0].device}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no autograd rule here; "
+                           "use AttentionCoreFn for a differentiable call")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# K1 / K2: forward
+# ---------------------------------------------------------------------------
+
+def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kmask: torch.Tensor, export_weights: bool = True
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """q, k, v: (B, H, L, Dh) in the score dtype (bf16 or fp32); kmask
+    (B, L) {0,1}.  Returns (out (B, H, L, Dh) in q's dtype, head-mean map
+    (B, L, L) fp32 or None).  Arithmetic of the Pallas ``_attn_kernel``."""
+    sd = q.dtype
+    dh, h = q.shape[-1], q.shape[1]
+    scale = dh ** -0.5
+    qs = (q.float() * scale).to(sd).float()
+    scores = torch.matmul(qs, k.to(sd).float().transpose(-1, -2))
+    scores = scores + _key_bias(kmask)[:, None, None, :]
+    smax = scores.amax(dim=-1, keepdim=True).clamp_min(-5e29)
+    ex = torch.exp(scores - smax)
+    recip = 1.0 / ex.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    vs = v.to(sd).float()
+    if not export_weights:
+        # normalize after the value matmul, like the no-export kernel
+        ov = torch.matmul(ex.to(sd).float(), vs)
+        return (ov * recip).to(sd), None
+    attn = ex * recip
+    out = torch.matmul(attn.to(sd).float(), vs).to(sd)
+    return out, attn.sum(dim=1) * (1.0 / h)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   kmask: torch.Tensor, export_weights: bool = True
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1 (``export_weights=True``) / K2 on CUDA; the plain version on CPU.
+    A block keeps its score rows in shared memory, which bounds L (about
+    1500 under bf16 with the map): the C side reports a larger L as a CUDA
+    error, which ``kernels.call`` raises."""
+    if not q.is_cuda:
+        return attention_core_plain(q, k, v, kmask, export_weights)
+    _check_cuda("attention_core", kmask, q, k, v)
+    b, h, l, dh = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"attention_core: unsupported dtype {q.dtype}")
+    if k.shape != q.shape or v.shape != q.shape or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("attention_core: q, k, v must share shape and dtype")
+    if tuple(kmask.shape) != (b, l):
+        raise ValueError(f"attention_core: kmask {tuple(kmask.shape)} != {(b, l)}")
+    if dh not in (32, 64):
+        raise ValueError(f"attention_core: head dim {dh} not in (32, 64)")
+    bias = _key_bias(kmask).contiguous()
+    out = torch.empty_like(q)
+    amap = (torch.empty((b, l, l), device=q.device, dtype=torch.float32)
+            if export_weights else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.call("attention", "attn_fwd", q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), bias.data_ptr(), out.data_ptr(), _ptr(amap),
+                     b, h, l, dh, ctypes.c_float(dh ** -0.5),
+                     int(q.dtype == torch.bfloat16), int(export_weights), stream)
+    kernels.launches["attention_fwd_export" if export_weights
+                     else "attention_fwd"] += 1
+    return out, amap
+
+
+# ---------------------------------------------------------------------------
+# K3: backward
+# ---------------------------------------------------------------------------
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, kmask: torch.Tensor,
+                        score_dtype: torch.dtype
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q pre-scaled; q, k, v, do (B, H, L, Dh); kmask (B, L).  Returns fp32
+    (dq, dk, dv) w.r.t. the pre-scaled q — the arithmetic of the Pallas
+    ``_attn_bwd_kernel`` over the whole sequence at once."""
+    sd = score_dtype
+
+    def r(t):
+        return t.float().to(sd).float()
+
+    qs, ks, vs, dos = r(q), r(k), r(v), r(do)
+    scores = torch.matmul(qs, ks.transpose(-1, -2)) + _key_bias(kmask)[:, None, None, :]
+    smax = scores.amax(dim=-1, keepdim=True).clamp_min(-5e29)
+    ex = torch.exp(scores - smax)
+    p = ex * (1.0 / ex.sum(dim=-1, keepdim=True).clamp_min(1e-30))
+    dp = torch.matmul(dos, vs.transpose(-1, -2))
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds.to(sd).float(), ks)
+    dk = torch.matmul(ds.to(sd).float().transpose(-1, -2), qs)
+    dv = torch.matmul(p.to(sd).float().transpose(-1, -2), dos)
+    return dq, dk, dv
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, kmask: torch.Tensor,
+                  score_dtype: torch.dtype,
+                  stats: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 on CUDA; the plain version on CPU.  Square (Lq == Lk) only: the
+    rectangular case serves CoMer, which is not ported yet.  ``stats``, a
+    (B, H, L, 3) fp32 CUDA buffer, receives each query row's (max score,
+    1/sum, delta) from the kernel's first pass."""
+    if not q.is_cuda:
+        return attention_bwd_plain(q, k, v, do, kmask, score_dtype)
+    b, h, l, dh = q.shape
+    if k.shape != q.shape or v.shape != q.shape or do.shape != q.shape:
+        raise ValueError("attention_bwd: q, k, v, do must share one shape")
+    if tuple(kmask.shape) != (b, l):
+        raise ValueError(f"attention_bwd: kmask {tuple(kmask.shape)} != {(b, l)}")
+    if dh not in (32, 64):
+        raise ValueError(f"attention_bwd: head dim {dh} not in (32, 64)")
+    if score_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"attention_bwd: unsupported score dtype {score_dtype}")
+    qf, kf, vf, dof = (t.float().contiguous() for t in (q, k, v, do))
+    _check_cuda("attention_bwd", kmask, qf, kf, vf, dof)
+    bias = _key_bias(kmask).contiguous()
+    dq, dk, dv = (torch.empty_like(qf) for _ in range(3))
+    if stats is None:
+        stats = torch.empty((b, h, l, 3), device=q.device, dtype=torch.float32)
+    elif (tuple(stats.shape) != (b, h, l, 3) or stats.dtype != torch.float32
+          or stats.device != q.device or not stats.is_contiguous()):
+        raise ValueError("attention_bwd: stats must be a contiguous (B, H, L, 3) "
+                         "fp32 tensor on q's device")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.call("attention", "attn_bwd", qf.data_ptr(), kf.data_ptr(),
+                     vf.data_ptr(), dof.data_ptr(), bias.data_ptr(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     stats.data_ptr(), b, h, l, dh,
+                     int(score_dtype == torch.bfloat16), stream)
+    kernels.launches["attention_bwd"] += 1
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# differentiable core + MHA wrappers
+# ---------------------------------------------------------------------------
+
+class AttentionCoreFn(torch.autograd.Function):
+    """Differentiable attention core: K1 forward (with the map export), K3
+    backward.  q, k, v (B, H, L, Dh) UNscaled in the score dtype; kmask
+    (B, L).  The map output is not differentiable: its cotangent is taken
+    as zero (GradCAM consumes it detached)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kmask):
+        out, amap = attention_core(q.detach(), k.detach(), v.detach(), kmask,
+                                   export_weights=True)
+        ctx.save_for_backward(q, k, v, kmask)
+        ctx.mark_non_differentiable(amap)
+        return out, amap
+
+    @staticmethod
+    def backward(ctx, g_out, _g_map_assumed_zero):
+        q, k, v, kmask = ctx.saved_tensors
+        scale = q.shape[-1] ** -0.5
+        dq, dk, dv = attention_bwd(q.float() * scale, k, v, g_out.float(),
+                                   kmask, score_dtype=q.dtype)
+        return (dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def _heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, l, d = t.shape
+    return t.reshape(b, l, n_heads, d // n_heads).permute(0, 2, 1, 3).contiguous()
+
+
+def _out_project(out: torch.Tensor, p: MhaParams, valid, cd, x_dtype):
+    b, h, l, hd = out.shape
+    out = out.to(cd).permute(0, 2, 1, 3).reshape(b, l, h * hd)
+    out = torch.matmul(out, p.out_w.to(cd).t()) + p.out_b.to(cd)
+    if valid is not None:
+        out = out.masked_fill(~valid.bool()[..., None], 0.0)
+    return out.to(x_dtype)
+
+
+def _kmask(valid, b, l, device):
+    return (valid.float() if valid is not None
+            else torch.ones((b, l), device=device, dtype=torch.float32))
+
+
+def mha_with_weights_kernel(
+    x: torch.Tensor,
+    p: MhaParams,
+    n_heads: int,
+    valid: Optional[torch.Tensor] = None,
+    policy: precision.Policy = precision.DEFAULT,
+    want_weights: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """ops.attention.mha_with_weights through the forward kernels
+    (projections stay torch matmuls); gradient-free callers only."""
+    b, l, _ = x.shape
+    cd = policy.compute_dtype
+    q, k, v = qkv_project(x, p, cd)
+    out, amap = attention_core(_heads(q, n_heads), _heads(k, n_heads),
+                               _heads(v, n_heads), _kmask(valid, b, l, x.device),
+                               export_weights=want_weights)
+    if valid is not None and amap is not None:
+        amap = amap.masked_fill(~valid.bool()[:, :, None], 0.0)
+    return _out_project(out, p, valid, cd, x.dtype), amap
+
+
+def mha_with_weights_fused(
+    x: torch.Tensor,
+    p: MhaParams,
+    n_heads: int,
+    valid: Optional[torch.Tensor] = None,
+    policy: precision.Policy = precision.DEFAULT,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable ops.attention.mha_with_weights: K1 forward and K3
+    backward through ``AttentionCoreFn``.  The map must be consumed
+    detached."""
+    b, l, _ = x.shape
+    cd = policy.compute_dtype
+    q, k, v = qkv_project(x, p, cd)
+    out, amap = AttentionCoreFn.apply(_heads(q, n_heads), _heads(k, n_heads),
+                                      _heads(v, n_heads),
+                                      _kmask(valid, b, l, x.device))
+    if valid is not None:
+        amap = amap.masked_fill(~valid.bool()[:, :, None], 0.0)
+    return _out_project(out, p, valid, cd, x.dtype), amap
