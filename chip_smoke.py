@@ -9,25 +9,34 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``weclip_tpu_torch/csrc`` (one nvcc each,
    all at once);
-3. each kernel (K1-K5) against its plain PyTorch version on the card, on
-   the same seeded inputs at the shapes of the msc-flip inference path,
-   each output against its own stated tolerance (K3 also against a float64
-   evaluation, and ``AttentionCoreFn`` against K1/K3 and fp32 autograd),
-   timed beside its plain version, a PyTorch library call where one
-   computes the same function, and the least time the card could take
-   (``bound_ms``);
+3. each kernel (K1-K6, K3-rect) against its plain PyTorch version on the
+   card, on seeded inputs at the shapes of the paths below, each output
+   against its own stated tolerance (K3 also against a float64 evaluation;
+   ``AttentionCoreFn`` and ``CrossAttentionCoreFn`` against their kernels
+   and fp32 autograd), timed beside its plain version, a PyTorch library
+   call where one computes the same function, and the least time the card
+   could take (``bound_ms``);
 4. ``WeCLIPPipeline(device="cuda")`` at full ViT-B/16 width with seeded
    random weights: ``pseudo_label_batch`` and ``segment_batch`` (msc +
-   flip) on 8 synthetic VOC-sized images, launch counters reset just before
-   and read just after, every kernel required to have launched; then one
-   image at the fp32 policy on the card and on the CPU (plain versions),
-   pseudo-label agreement required to be at least 99%;
-5. one ``{"kernels": [...]}`` line, then as the last line
+   flip) on 8 synthetic VOC-sized images; then one image at the fp32
+   policy on the card and on the CPU (plain versions), pseudo-label
+   agreement required to be at least 99%;
+5. the same two calls with the CoMer branch (``configs/voc_comer.yaml``,
+   its zero-init gates opened);
+6. the CoMer training step at full width (crop 320, batch 4): warm steps,
+   timed steps, finite losses, every parameter moved, every CoMer leaf a
+   nonzero gradient; then one fp32 step at batch 1 on the card and on the
+   CPU (pseudo labels, loss, gradients, update);
+7. one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
+
+Launch counters are reset just before each call of phases 4-6 and read just
+after it; every kernel must have launched on that main path.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -195,6 +204,45 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
+def record_kernel(records, name, source, replaces, checks, ms, plain_ms, bound,
+                  lib_ms, shapes, **extra):
+    """Append a kernel's record.  ``checks``: (what, max_abs_err, tol),
+    each output held to its own tolerance; fails after printing them all."""
+    replaces, tpu_kernel = replaces.split(" ", 1)
+    bad = []
+    for what, err, tol in checks:
+        ok = err <= tol
+        if not ok:
+            bad.append((what, err, tol))
+        print(f"[kernel] {name}: {what}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+    print(f"[kernel] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound[0]:.4f} ms ({bound[1]}), library "
+          f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; {shapes}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"{name}: {bad}")
+    records.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "tpu_kernel": tpu_kernel.strip("()"),
+                    "max_abs_err": max(c[1] for c in checks),
+                    "checks": [{"what": w, "max_abs_err": e, "tol": t}
+                               for w, e, t in checks],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                    "bound_by": bound[1], "library_ms": lib_ms,
+                    "shapes": shapes, **extra})
+
+
+def output_check(what, out, ref):
+    """bf16 outputs: one bf16 ulp of the largest |ref| (a single rounding
+    of the output may go the other way); fp32 outputs: 2e-5."""
+    import torch
+    if out.dtype == torch.bfloat16:
+        tol = bf16_ulp(float(ref.float().abs().max()))
+    else:
+        tol = 2e-5
+    return (what, max_err(out, ref), tol)
+
+
 # K3's distance from the float64 evaluation may be at most these multiples
 # of the plain version's, (max, mean).  The max is one element's fate: a dS
 # within ~1e-7 (relative) of a bf16 rounding midpoint rounds either way
@@ -221,41 +269,7 @@ def check_kernels(reps: int = 10):
     bf = torch.bfloat16
     records = []
 
-    def record(name, source, replaces, checks, ms, plain_ms, bound, lib_ms,
-               shapes, **extra):
-        """``checks``: (what, max_abs_err, tol), each output held to its own
-        tolerance; fails after printing them all."""
-        replaces, tpu_kernel = replaces.split(" ", 1)
-        bad = []
-        for what, err, tol in checks:
-            ok = err <= tol
-            if not ok:
-                bad.append((what, err, tol))
-            print(f"[kernel] {name}: {what}: max_abs_err {err:.3e} (tol {tol:.3e}) "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-        print(f"[kernel] {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound[0]:.4f} ms ({bound[1]}), library "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; {shapes}",
-              flush=True)
-        if bad:
-            raise AssertionError(f"{name}: {bad}")
-        records.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "tpu_kernel": tpu_kernel.strip("()"),
-                        "max_abs_err": max(c[1] for c in checks),
-                        "checks": [{"what": w, "max_abs_err": e, "tol": t}
-                                   for w, e, t in checks],
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-                        "bound_by": bound[1], "library_ms": lib_ms,
-                        "shapes": shapes, **extra})
-
-    def out_check(what, out, ref):
-        """bf16 outputs: one bf16 ulp of the largest |ref| (a single rounding
-        of the output may go the other way); fp32 outputs: 2e-5."""
-        if out.dtype == bf:
-            tol = bf16_ulp(float(ref.float().abs().max()))
-        else:
-            tol = 2e-5
-        return (what, max_err(out, ref), tol)
+    record = functools.partial(record_kernel, records)
 
     def attn_fwd_bytes(b, h, l, dh, export):
         n = 4 * b * h * l * dh * 2 + b * l * 4       # q, k, v in, out; mask
@@ -270,7 +284,7 @@ def check_kernels(reps: int = 10):
     out, amap = ak.attention_core(q, k, v, km, export_weights=True)
     ref_out, ref_map = ak.attention_core_plain(q, k, v, km, export_weights=True)
     torch.cuda.synchronize()
-    checks = [out_check(f"out {[b, h, l, dh]} bf16", out, ref_out),
+    checks = [output_check(f"out {[b, h, l, dh]} bf16", out, ref_out),
               (f"head-mean map {[b, l, l]} fp32 (largest "
                f"{float(ref_map.max()):.3e})", max_err(amap, ref_map), 2e-5)]
     record("attention_fwd_export", src_attn,
@@ -298,7 +312,7 @@ def check_kernels(reps: int = 10):
         out, _ = ak.attention_core(q, k, v, km, export_weights=False)
         ref, _ = ak.attention_core_plain(q, k, v, km, export_weights=False)
         torch.cuda.synchronize()
-        checks.append(out_check(f"out {[b, h, l, dh]} {str(dtype)[6:]}", out, ref))
+        checks.append(output_check(f"out {[b, h, l, dh]} {str(dtype)[6:]}", out, ref))
         if first is None:
             first = (q, k, v, km)
     q, k, v, km = first
@@ -419,7 +433,9 @@ def check_kernels(reps: int = 10):
     lib_ms = cuda_ms(lambda: torch.autograd.grad(out_l, (ql, kl, vl), do_l,
                                                  retain_graph=True), reps)
     del out_l, ql, kl, vl, do_l
-    bwd_bytes = 7 * b * h * l * dh * 4 + b * l * 4   # q,k,v,do in; dq,dk,dv out
+    # as AttentionCoreFn hands them over: q, k, v, dO bf16 in; dq, dk, dv
+    # fp32 out; the key mask
+    bwd_bytes = b * h * l * dh * (4 * 2 + 3 * 4) + b * l * 4
     record("attention_bwd", src_attn,
            "weclip_tpu/ops/pallas_attention.py:395 (attention_bwd_pallas; "
            "pallas_call :441)",
@@ -471,6 +487,170 @@ def check_kernels(reps: int = 10):
     return records
 
 
+def cti_masks(b: int, canvas: int):
+    """Key masks of the CTI attention on an eval canvas for the VOC sizes,
+    as comer_forward builds them: the ViT patch grid (b, g*g) and the
+    pyramid levels at 1/8, 1/16, 1/32 (b, L3 + L4 + L5), resized from the
+    grid with half-pixel centres."""
+    import torch
+    import torch.nn.functional as F
+    g = canvas // 16
+    vp = token_mask(b, canvas)[:, 1:]
+    sizes, n = [], canvas
+    for _ in range(5):
+        n = -(-n // 2)
+        sizes.append(n)
+    grid = vp.reshape(b, 1, g, g)
+    ms = [(F.interpolate(grid, size=(n, n), mode="nearest-exact").reshape(b, -1) > 0.5)
+          for n in sizes[2:]]
+    return vp, torch.cat(ms, dim=1).float()
+
+
+def check_cti_kernels(records, reps: int = 10):
+    """K6 and K3-rect against their plain versions at every shape of the
+    CoMer path (training crop 320 at batch 4; eval canvases 512 and 400 on
+    the 16 flip-concatenated rows), in both score types; the
+    autograd.Function that pairs them; appends their records."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from weclip_tpu_torch.core import precision
+    from weclip_tpu_torch.ops import attention_kernels as ak
+
+    precision.strict_matmul()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf = torch.bfloat16
+    record = functools.partial(record_kernel, records)
+    src = "weclip_tpu_torch/csrc/cross_attention.cu"
+    h, dh = 4, 64
+    ones = lambda b, n: torch.ones((b, n), device="cuda")
+    vp1, ms1 = cti_masks(16, 512)
+    vp2, ms2 = cti_masks(16, 400)
+    # (what, B, Lq, Lk, key mask): injection (pyramid queries, ViT keys)
+    # and extraction (the reverse) of each program
+    shapes = [("train inj", 4, 2100, 400, ones(4, 400)),
+              ("train ext", 4, 400, 2100, ones(4, 2100)),
+              ("eval s1 inj", 16, ms1.shape[1], vp1.shape[1], vp1),
+              ("eval s1 ext", 16, vp1.shape[1], ms1.shape[1], ms1),
+              ("eval s2 inj", 16, ms2.shape[1], vp2.shape[1], vp2),
+              ("eval s2 ext", 16, vp2.shape[1], ms2.shape[1], ms2)]
+
+    def qkv_rect(b, lq, lk, dtype):
+        q = (torch.randn((b, h, lq, dh), generator=gen, device="cuda") * dh ** -0.5)
+        k, v = (torch.randn((b, h, lk, dh), generator=gen, device="cuda")
+                for _ in range(2))
+        return q.to(dtype), k.to(dtype), v.to(dtype)
+
+    # K6
+    checks, ms_by_shape = [], {}
+    for what, b, lq, lk, km in shapes:
+        for dtype in (bf, torch.float32):
+            q, k, v = qkv_rect(b, lq, lk, dtype)
+            out = ak.cross_attention_core(q, k, v, km)
+            ref = ak.cross_attention_core_plain(q, k, v, km)
+            torch.cuda.synchronize()
+            tol = bf16_ulp(float(ref.abs().max())) if dtype == bf else 2e-5
+            checks.append((f"{what} out {[b, h, lq, dh]} x {lk} keys "
+                           f"{str(dtype)[6:]} fp32 out", max_err(out, ref), tol))
+            if dtype == bf:
+                ms_by_shape[what] = cuda_ms(lambda: ak.cross_attention_core(q, k, v, km),
+                                            reps)
+            del out, ref
+    what, b, lq, lk, km = shapes[2]
+    q, k, v = qkv_rect(b, lq, lk, bf)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=km.bool()[:, None, None, :], scale=1.0), reps)
+    k6_bytes = b * h * (lq * dh * 2 + 2 * lk * dh * 2 + lq * dh * 4) + b * lk * 4
+    record("cross_attention", src,
+           "weclip_tpu/ops/pallas_attention.py:539 (cross_attention_core_pallas; "
+           "pallas_call :582)",
+           checks, ms_by_shape[what],
+           cuda_ms(lambda: ak.cross_attention_core_plain(q, k, v, km), reps),
+           bound_ms(k6_bytes, 4 * b * h * lq * lk * dh, "bf16"), lib_ms,
+           [[s[1], h, s[2], dh, s[3]] for s in shapes],
+           timed_shape=what, ms_by_shape=ms_by_shape)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # K3-rect: the CTI backward of training, bf16 (held like K3: max to one
+    # bf16 ulp, mean to 1e-5 of each gradient's largest magnitude) and fp32
+    # (2e-5 of it)
+    checks, failed, ms_by_shape, means = [], [], {}, {}
+    for what, b, lq, lk, km in shapes[:2]:
+        for dtype in (bf, torch.float32):
+            q, k, v = qkv_rect(b, lq, lk, dtype)
+            do = torch.randn((b, h, lq, dh), generator=gen, device="cuda")
+            got = ak.attention_bwd(q.float(), k, v, do, km, dtype)
+            ref = ak.attention_bwd_plain(q.float(), k, v, do, km, dtype)
+            torch.cuda.synchronize()
+            for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+                sc = float(r.abs().max())
+                rel = 2.0 ** -8 if dtype == bf else 2e-5
+                label = f"{what} {name} {str(dtype)[6:]} (largest |{name}| {sc:.3e})"
+                checks.append((label, max_err(a, r), rel * sc))
+                if dtype == bf:
+                    mean = float((a - r).abs().mean())
+                    means[label] = mean
+                    if mean > 1e-5 * sc:
+                        failed.append(f"{label}: mean error {mean}")
+            if dtype == bf:
+                ms_by_shape[what] = cuda_ms(
+                    lambda: ak.attention_bwd(q, k, v, do, km, bf), reps)
+            del got, ref
+    what, b, lq, lk, km = shapes[0]
+    q, k, v = qkv_rect(b, lq, lk, bf)
+    do = torch.randn((b, h, lq, dh), generator=gen, device="cuda")
+    qf = q.float()
+    plain_ms = cuda_ms(lambda: ak.attention_bwd_plain(q, k, v, do, km, bf), reps)
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        out_l = F.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=km.bool()[:, None, None, :], scale=1.0)
+    do_l = do.to(bf)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(out_l, (ql, kl, vl), do_l,
+                                                 retain_graph=True), reps)
+    del out_l, ql, kl, vl
+    # the autograd.Function: under bf16 exactly K6's output and K3-rect's
+    # gradients in the primal dtype; under fp32 autograd of the plain forward
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = ak.CrossAttentionCoreFn.apply(qg, kg, vg, km)
+    g_fn = torch.autograd.grad(out, (qg, kg, vg), do)
+    want = [t.to(bf) for t in ak.attention_bwd(qf, k, v, do, km, bf)]
+    same = (torch.equal(out, ak.cross_attention_core(q, k, v, km))
+            and all(a.dtype == bf and torch.equal(a, w) for a, w in zip(g_fn, want)))
+    print(f"[kernel] CrossAttentionCoreFn bf16: output and gradients equal to K6's "
+          f"and K3-rect's: {same}", flush=True)
+    if not same:
+        failed.append("CrossAttentionCoreFn differs from K6/K3-rect")
+    q32, k32, v32 = (t[:1].float().requires_grad_(True) for t in (q, k, v))
+    out = ak.CrossAttentionCoreFn.apply(q32, k32, v32, km[:1])
+    g_fn = torch.autograd.grad(out, (q32, k32, v32), do[:1])
+    out_p = ak.cross_attention_core_plain(q32, k32, v32, km[:1])
+    g_pl = torch.autograd.grad(out_p, (q32, k32, v32), do[:1])
+    rel = max(max_err(a, r) / float(r.abs().max()) for a, r in zip(g_fn, g_pl))
+    print(f"[kernel] CrossAttentionCoreFn fp32 vs autograd of the plain forward: "
+          f"max error / max |grad| = {rel:.3e} (tol 1e-4)", flush=True)
+    if rel > 1e-4:
+        failed.append(f"CrossAttentionCoreFn fp32 gradient off by {rel}")
+    # as CrossAttentionCoreFn hands them over: q, k, v bf16, dO fp32 in;
+    # dq, dk, dv fp32 out; the key mask
+    bwd_bytes = b * h * (lq * dh * 2 + 2 * lk * dh * 2 + lq * dh * 4
+                         + lq * dh * 4 + 2 * lk * dh * 4) + b * lk * 4
+    record("attention_bwd_rect", src,
+           "weclip_tpu/ops/pallas_attention.py:395 (attention_bwd_pallas with "
+           "Lq != Lk; pallas_call :441)",
+           checks, ms_by_shape[what], plain_ms,
+           bound_ms(bwd_bytes, 10 * b * h * lq * lk * dh, "bf16"), lib_ms,
+           [[s[1], h, s[2], dh, s[3]] for s in shapes[:2]],
+           timed_shape=what, ms_by_shape=ms_by_shape, mean_abs_err=means,
+           autograd_fn_bf16_exact=same, autograd_fn_fp32_rel_err=rel)
+    if failed:
+        raise AssertionError(f"attention_bwd_rect: {failed}")
+    del q, k, v, do, qf, g_fn, g_pl, out, out_p
+    torch.cuda.empty_cache()
+
+
 def voc_images(n: int, seed: int):
     rng = np.random.default_rng(seed)
     ims, ids = [], []
@@ -520,10 +700,6 @@ def run_pipeline():
             raise AssertionError(f"pseudo labels {np.unique(lab)} outside {allowed}")
         if seg.min() < 0 or seg.max() >= cfg.dataset.num_classes:
             raise AssertionError(f"segmentation labels out of range: {np.unique(seg)}")
-    for name in kernels.launches:
-        total = launches["pseudo_label"][name] + launches["segment"][name]
-        if total == 0:
-            raise AssertionError(f"kernel {name} never launched on the main path")
     steady = profile_pipeline(pipe, ims, ids)
 
     # fp32 policy: the card's kernels against the CPU's plain versions
@@ -546,11 +722,235 @@ def run_pipeline():
                       "fp32_segment_agreement": agree_seg}
 
 
-def profile_pipeline(pipe, ims, ids, reps: int = 3):
+def open_comer_gates(params, seed: int):
+    """Set the CoMer branch's zero-init output projections (every CTI
+    attention's o_w and the branch's out_w) to seeded random values: at
+    init the branch outputs exactly 0, whatever it computes."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    c = params["comer"]
+
+    def rnd(t, std):
+        return (torch.randn(t.shape, generator=gen) * std).to(t.device)
+
+    for stage in c["cti"]:
+        for d in ("inj", "ext"):
+            stage[d]["o_w"] = rnd(stage[d]["o_w"], 0.02)
+    c["out_w"] = rnd(c["out_w"], c["out_w"].shape[1] ** -0.5)
+    return params
+
+
+COMER_CONFIG = "configs/voc_comer.yaml"
+
+
+def run_comer_pipeline():
+    """Phase 5: the msc-flip inference path with the CoMer branch at full
+    width (``configs/voc_comer.yaml``, gates opened); returns launches per
+    call and the warm times and profile."""
+    import torch
+
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.api import WeCLIPPipeline
+    from weclip_tpu_torch.core.config import load_config
+
+    cfg = load_config(COMER_CONFIG)
+    ims, ids = voc_images(cfg.eval.batch_images, seed=1)
+    pipe = WeCLIPPipeline(cfg, device="cuda", seed=0)
+    open_comer_gates(pipe.params, seed=5)
+    torch.cuda.synchronize()
+    launches = {}
+    kernels.reset_launches()
+    labels = pipe.pseudo_label_batch(ims, class_ids=ids)
+    torch.cuda.synchronize()
+    launches["comer_pseudo_label"] = dict(kernels.launches)
+    kernels.reset_launches()
+    segs = pipe.segment_batch(ims)
+    torch.cuda.synchronize()
+    launches["comer_segment"] = dict(kernels.launches)
+    print(f"[comer] launches {json.dumps(launches)}", flush=True)
+    for im, lab, seg, cid in zip(ims, labels, segs, ids):
+        allowed = {0} | {c + 1 for c in cid}
+        if lab.shape != im.shape[:2] or not set(np.unique(lab).tolist()) <= allowed:
+            raise AssertionError(f"CoMer pseudo labels {np.unique(lab)} outside {allowed}")
+        if seg.shape != im.shape[:2] or seg.min() < 0 or seg.max() >= cfg.dataset.num_classes:
+            raise AssertionError(f"CoMer segmentation out of range: {np.unique(seg)}")
+    steady = profile_pipeline(pipe, ims, ids, tag="comer ")
+    del pipe
+    torch.cuda.empty_cache()
+    return launches, steady
+
+
+def synthetic_train_batch(cfg, b: int, seed: int):
+    """``b`` normalized random crops with 1-3 random present classes each."""
+    rng = np.random.default_rng(seed)
+    crop = cfg.dataset.crop_size
+    pix = rng.integers(0, 256, (b, crop, crop, 3)).astype(np.float32)
+    img = (pix - np.asarray(cfg.dataset.mean)) / np.asarray(cfg.dataset.std)
+    num_fg = cfg.dataset.num_classes - 1
+    present = np.zeros((b, num_fg), bool)
+    for i in range(b):
+        present[i, rng.choice(num_fg, int(rng.integers(1, 4)), replace=False)] = True
+    return {"img": img.transpose(0, 3, 1, 2).astype(np.float32), "present_mask": present}
+
+
+def run_training(warm: int = 2, timed: int = 5):
+    """Phase 6: the CoMer training step at full width (ViT-B/16,
+    ``configs/voc_comer.yaml``, crop 320, batch 4, bf16 backbone policy,
+    dropout on), gates opened; then one fp32-policy, dropout-off step on the
+    card against the same step on the CPU at batch 1.  Returns launches of
+    one step and the measurements."""
+    import torch
+
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.core import precision
+    from weclip_tpu_torch.core.config import load_config
+    from weclip_tpu_torch.models import weclip
+    from weclip_tpu_torch.train import step as step_mod
+    from weclip_tpu_torch.train.trainer import make_batcher
+
+    cfg = load_config(COMER_CONFIG)
+    params = open_comer_gates(weclip.init_trainable_params(
+        torch.Generator().manual_seed(0), cfg), seed=5)
+    frozen = weclip.random_frozen_state(cfg, seed=0, device="cuda")
+    state = step_mod.create_train_state(None, cfg, "cuda", params=params)
+    step_fn = step_mod.make_train_step(cfg, precision.make_policy(cfg.precision.compute_dtype))
+    host = synthetic_train_batch(cfg, cfg.train.samples_per_gpu, seed=2)
+    batch, ci, ca = make_batcher(cfg, frozen, "cuda")(host)
+    before = [t.detach().clone() for t in step_mod.param_leaves(state.params)]
+
+    def one():
+        _, m = step_fn(state, frozen, batch, rng=7, cls_idx=ci, cls_active=ca)
+        return m
+
+    metrics = [one() for _ in range(warm)]
+    torch.cuda.synchronize()
+    times = []
+    for i in range(timed):
+        if i == 0:
+            kernels.reset_launches()
+        t0 = time.perf_counter()
+        metrics.append(one())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            launches = {"train_step": dict(kernels.launches)}
+    step_ms = float(np.median(times))
+    losses = [float(m.loss) for m in metrics]
+    print(f"[train] {len(metrics)} steps at batch {cfg.train.samples_per_gpu}, crop "
+          f"{cfg.dataset.crop_size}: losses {[round(x, 5) for x in losses]}; step "
+          f"{step_ms:.1f} ms (median of {timed}, host clock), "
+          f"{cfg.train.samples_per_gpu / step_ms * 1e3:.2f} img/s; launches of one "
+          f"step {json.dumps(launches['train_step'])}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    after = step_mod.param_leaves(state.params)
+    unchanged = sum(bool(torch.equal(a.detach(), b)) for a, b in zip(after, before))
+    zero_grads = [i for i, t in enumerate(step_mod.param_leaves(state.params["comer"]))
+                  if t.grad is None or float(t.grad.abs().max()) == 0.0]
+    print(f"[train] parameters unchanged after {len(metrics)} steps: {unchanged} of "
+          f"{len(after)} leaves; comer leaves with a zero gradient: {len(zero_grads)} "
+          f"of {len(step_mod.param_leaves(state.params['comer']))}", flush=True)
+    if unchanged or zero_grads:
+        raise AssertionError(f"training did not move every parameter ({unchanged} "
+                             f"unchanged) or comer leaves {zero_grads} got no gradient")
+    busy, idle = trace(one, "train step")
+    del state, before, after, batch
+    torch.cuda.empty_cache()
+    out = {"step_ms": step_ms, "images_per_s": cfg.train.samples_per_gpu / step_ms * 1e3,
+           "step_times_ms": times, "losses": losses, "device_busy_ms": busy,
+           "idle_share": idle, **compare_fp32_step(cfg, params)}
+    return launches, out
+
+
+def named_leaves(tree, prefix=""):
+    """(path, tensor) of a parameter tree, in ``step.param_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in named_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in named_leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def compare_fp32_step(cfg, params):
+    """One fp32-policy, dropout-off ``make_train_step`` step at batch 1 on
+    the CPU (plain versions) and on the card (K1-K6 and K3-rect in fp32),
+    lr at its full value from step 0 so that the update is visible.  Each
+    device's pseudo labels (``forward_train``) are compared; then both steps
+    train against the CPU's labels (the step's ``pseudo``), so that a pixel
+    whose label flips in the CAM chain does not stand in for a difference in
+    the gradients.  Each gradient leaf is held to its own largest magnitude,
+    except the CTI key biases (``k_b``): the softmax cancels their gradient,
+    which is rounding on either device; their readings are printed."""
+    import dataclasses
+
+    import torch
+
+    from weclip_tpu_torch.core import precision
+    from weclip_tpu_torch.models import weclip
+    from weclip_tpu_torch.train import step as step_mod
+    from weclip_tpu_torch.train.trainer import make_batcher
+
+    cfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer,
+                                                                 warmup_iter=0))
+    host = synthetic_train_batch(cfg, 1, seed=3)
+    step_fn = step_mod.make_train_step(cfg, precision.FP32)
+    res = {}
+    for device in ("cpu", "cuda"):
+        frozen = weclip.random_frozen_state(cfg, seed=0, device=device)
+        state = step_mod.create_train_state(None, cfg, device, params=params)
+        batch, ci, ca = make_batcher(cfg, frozen, device)(host)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            labels = weclip.forward_train(state.params, frozen, batch, cfg, False, None,
+                                          precision.FP32, cls_idx=ci,
+                                          cls_active=ca).cam_labels.cpu()
+        pseudo = labels if device == "cpu" else res["cpu"]["labels"]
+        _, m = step_fn(state, frozen, batch, cls_idx=ci, cls_active=ca,
+                       pseudo=pseudo.to(device))
+        leaves = named_leaves(state.params)
+        res[device] = {"loss": float(m.loss), "labels": labels,
+                       "grads": {n: t.grad.cpu() for n, t in leaves},
+                       "params": {n: t.detach().cpu() for n, t in leaves}}
+        print(f"[train] fp32 step at batch 1 on {device}: loss {res[device]['loss']:.6f}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del state, frozen, batch
+    c, d = res["cpu"], res["cuda"]
+    agree = float((c["labels"] == d["labels"]).float().mean())
+    loss_rel = abs(d["loss"] - c["loss"]) / abs(c["loss"])
+    key_bias = [n for n in c["grads"] if n.startswith("/comer/cti/") and n.endswith("/k_b")]
+    for n in key_bias:
+        kw = c["grads"][n[:-3] + "k_w"].abs().max()
+        print(f"[train] {n} left out (softmax-cancelled): largest |grad| cpu "
+              f"{float(c['grads'][n].abs().max()):.3e}, card "
+              f"{float(d['grads'][n].abs().max()):.3e}; its k_w's {float(kw):.3e}",
+              flush=True)
+    held = [n for n in c["grads"] if n not in key_bias]
+    grad_rel = {n: float((d["grads"][n] - c["grads"][n]).abs().max()
+                         / c["grads"][n].abs().max().clamp_min(1e-30)) for n in held}
+    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3]
+    # the update of an element whose gradient is well above its leaf's noise
+    # floor (AdamW's first step moves every element by about lr * sign(g))
+    settled = torch.cat([(c["grads"][n].abs() >= 1e-3 * c["grads"][n].abs().max())
+                         .reshape(-1) for n in held])
+    pdiff = torch.cat([(d["params"][n] - c["params"][n]).abs().reshape(-1) for n in held])
+    close = float((pdiff[settled] <= 1e-6).float().mean())
+    print(f"[train] fp32 card vs CPU: pseudo-label agreement {agree:.6f} (need >= 0.99); "
+          f"on the CPU's labels: loss relative difference {loss_rel:.3e} (tol 1e-4); "
+          f"gradient max error / the leaf's largest |grad| over {len(held)} leaves, "
+          f"worst {', '.join(f'{n} {r:.3e}' for n, r in worst)} (tol 1e-3); updated "
+          f"parameters within 1e-6 where the gradient is at least 1e-3 of its leaf's "
+          f"largest: {close:.6f} of {int(settled.sum())} (need >= 0.999)", flush=True)
+    if agree < 0.99 or loss_rel > 1e-4 or worst[0][1] > 1e-3 or close < 0.999:
+        raise AssertionError("fp32 training step differs between the card and the CPU")
+    return {"fp32_loss_cpu": c["loss"], "fp32_loss_card": d["loss"],
+            "fp32_loss_rel_diff": loss_rel, "fp32_pseudo_label_agreement": agree,
+            "fp32_grad_leaf_rel_err": grad_rel, "fp32_params_close_share": close}
+
+
+def profile_pipeline(pipe, ims, ids, reps: int = 3, tag: str = ""):
     """Warm host-clock times of the two calls (median of ``reps``), then
     one traced pair: device time by kernel and the device's idle share."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     def timed(fn):
         ts = []
@@ -565,29 +965,41 @@ def profile_pipeline(pipe, ims, ids, reps: int = 3):
            "segment_warm_ms": timed(lambda: pipe.segment_batch(ims))}
     for name, fn in (("pseudo_label", lambda: pipe.pseudo_label_batch(ims, ids)),
                      ("segment", lambda: pipe.segment_batch(ims))):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = _union_ms([(e.time_range.start, e.time_range.end) for e in events])
-        by_kernel = {}
-        for e in events:
-            by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
-                                 + (e.time_range.end - e.time_range.start) / 1e3)
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
-        print(f"[profile] {name}: wall {wall:.1f} ms (traced), device busy "
-              f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}", flush=True)
-        for k, ms in top:
-            print(f"[profile]   {ms:9.3f} ms  {k[:110]}", flush=True)
+        busy, idle = trace(fn, f"{tag}{name}")
         out[f"{name}_device_busy_ms"] = busy
-        out[f"{name}_idle_share"] = 1 - busy / wall
-    print(f"[pipeline] warm: pseudo_label_batch(8) {out['pseudo_label_warm_ms']:.1f} ms, "
-          f"segment_batch(8) {out['segment_warm_ms']:.1f} ms (median of {reps})",
-          flush=True)
+        out[f"{name}_idle_share"] = idle
+    print(f"[pipeline] {tag}warm: pseudo_label_batch(8) "
+          f"{out['pseudo_label_warm_ms']:.1f} ms, segment_batch(8) "
+          f"{out['segment_warm_ms']:.1f} ms (median of {reps})", flush=True)
     return out
+
+
+def trace(fn, name: str, top_n: int = 12):
+    """One traced call of ``fn``: prints the device time by kernel (top
+    ``top_n``) and returns (device busy ms, idle share of the host wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # device spans of kernels and copies; a range such as the optimizer's
+    # step is mirrored onto the device timeline as an annotation, not work
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy = _union_ms([(e.time_range.start, e.time_range.end) for e in events])
+    by_kernel = {}
+    for e in events:
+        by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                             + (e.time_range.end - e.time_range.start) / 1e3)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top_n]
+    print(f"[profile] {name}: wall {wall:.1f} ms (traced), device busy "
+          f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}", flush=True)
+    for k, ms in top:
+        print(f"[profile]   {ms:9.3f} ms  {k[:110]}", flush=True)
+    return busy, 1 - busy / wall
 
 
 def _union_ms(spans) -> float:
@@ -609,21 +1021,34 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    os.chdir(os.path.dirname(os.path.abspath(__file__)))
     from weclip_tpu_torch import kernels
 
-    print(card_line(), flush=True)
+    t_start = time.perf_counter()
+    card = card_line()
+    print(card, flush=True)
     t0 = time.perf_counter()
     took = kernels.build()
     print(f"[build] {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})", flush=True)
     records = check_kernels()
+    check_cti_kernels(records)
     launches, pipeline = run_pipeline()
+    comer_launches, comer = run_comer_pipeline()
+    train_launches, training = run_training()
+    launches.update(comer_launches)
+    launches.update(train_launches)
+    for name in kernels.launches:
+        if not sum(phase[name] for phase in launches.values()):
+            raise AssertionError(f"kernel {name} never launched on the main path")
     for r in records:
-        r["launches"] = (launches["pseudo_label"][r["name"]]
-                         + launches["segment"][r["name"]])
-        r["launches_pseudo_label"] = launches["pseudo_label"][r["name"]]
-        r["launches_segment"] = launches["segment"][r["name"]]
-    print(json.dumps({"kernels": records, "pipeline": pipeline}))
+        r["launches"] = sum(phase[r["name"]] for phase in launches.values())
+        r["launches_by_call"] = {call: phase[r["name"]] for call, phase in launches.items()}
+    seconds = time.perf_counter() - t_start
+    print(f"[done] {seconds:.1f} s in all, on {card}", flush=True)
+    print(json.dumps({"kernels": records, "card": card, "pipeline": pipeline,
+                      "comer_pipeline": comer, "training": training,
+                      "seconds": seconds}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

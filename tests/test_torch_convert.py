@@ -13,6 +13,8 @@ import torch
 import jax
 
 from tests import tiny
+from weclip_tpu.core.config import ComerConfig
+from weclip_tpu.models import comer as jcomer
 from weclip_tpu.models import heads as jheads
 from weclip_tpu.models.clip import vit as jvit
 from weclip_tpu_torch import convert, kernels
@@ -25,9 +27,14 @@ def _np_tree(t):
 
 
 def _assert_tree_equal(a, b, where=""):
+    if isinstance(a, list):
+        assert isinstance(b, list) and len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_tree_equal(x, y, f"{where}[{i}]")
+        return
     assert set(a) == set(b), where
     for k in a:
-        if isinstance(a[k], dict):
+        if isinstance(a[k], (dict, list)):
             _assert_tree_equal(a[k], b[k], f"{where}.{k}")
         else:
             np.testing.assert_array_equal(a[k], b[k], err_msg=f"{where}.{k}")
@@ -68,8 +75,37 @@ def test_convert_rejects_malformed_trees():
         convert.visual_from_jax(ragged)
     with pytest.raises(TypeError):
         convert.visual_from_jax(dict(visual, proj=np.zeros((64, 32), np.int32)))
-    with pytest.raises(NotImplementedError):
-        convert.params_from_jax({"head": {}, "comer": {}})
+    head = _np_tree(jheads.init_head_params(jax.random.PRNGKey(1), n_layers=11,
+                                            in_dim=64, embed=32, num_classes=6))
+    with pytest.raises(KeyError):
+        convert.params_from_jax({"head": head, "comer": {}})
+    comer = _comer_tree()
+    with pytest.raises(KeyError):
+        convert.comer_from_jax(dict(comer, cti=[dict(comer["cti"][0], inj={})]))
+    with pytest.raises(ValueError):
+        convert.comer_from_jax(dict(comer, mrfp=comer["mrfp"][:2]))
+
+
+def _comer_tree():
+    cfg = ComerConfig(enabled=True, stem_width=8, pyramid_dims=(16, 16, 16),
+                      mrfp_dilations=(1, 2), cti_heads=2, interaction_indexes=(2, 5))
+    return _np_tree(jcomer.init_comer_params(jax.random.PRNGKey(2), cfg,
+                                             vit_width=32, embed=16))
+
+
+def test_convert_comer_round_trip():
+    """The CoMer tree (its mrfp and cti entries lists of dicts): JAX ->
+    port -> numpy gives the same arrays back, also through
+    params_from_jax."""
+    comer = _comer_tree()
+    tc = convert.comer_from_jax(comer)
+    _assert_tree_equal(convert.to_numpy(tc), comer, "comer")
+    assert len(tc["mrfp"]) == 3 and len(tc["cti"]) == 2
+    assert tc["cti"][1]["ext"]["o_w"].shape == (16, 16)
+    head = _np_tree(jheads.init_head_params(jax.random.PRNGKey(1), n_layers=11,
+                                            in_dim=64, embed=32, num_classes=6))
+    both = convert.params_from_jax({"head": head, "comer": comer})
+    _assert_tree_equal(convert.to_numpy(both), {"head": head, "comer": comer})
 
 
 def test_port_imports_without_jax():
@@ -109,5 +145,7 @@ def test_launch_counters_reset():
     kernels.launches["par_affinity"] += 3
     kernels.reset_launches()
     assert set(kernels.launches) == {"attention_fwd_export", "attention_fwd",
-                                     "attention_bwd", "par_affinity", "par_propagate"}
+                                     "attention_bwd", "cross_attention",
+                                     "attention_bwd_rect", "par_affinity",
+                                     "par_propagate"}
     assert not any(kernels.launches.values())

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1-K5) against their plain versions on the
-card.  These need a CUDA card with nvcc and skip elsewhere; run them there
+"""The port's CUDA kernels (K1-K6, K3-rect) against their plain versions on
+the card.  These need a CUDA card with nvcc and skip elsewhere; run them there
 with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 ``chip_smoke.py`` holds the same kernels at the full inference shapes."""
 
@@ -59,6 +59,56 @@ def test_attention_bwd_kernel_matches_plain(card, dtype, tol):
         torch.testing.assert_close(a, r, rtol=tol, atol=tol)
 
 
+def _rect(card, lq, lk, dtype):
+    """q (pre-scaled), k, v at (3, 2, L, 64); key masks: all valid, a third
+    valid, none valid (a fully masked key row)."""
+    g = torch.Generator(device=card).manual_seed(1)
+    b, h, dh = 3, 2, 64
+    q = (torch.randn((b, h, lq, dh), generator=g, device=card) * dh ** -0.5).to(dtype)
+    k, v = (torch.randn((b, h, lk, dh), generator=g, device=card).to(dtype)
+            for _ in range(2))
+    km = torch.zeros((b, lk), device=card)
+    km[0] = 1.0
+    km[1, :lk // 3] = 1.0
+    return q, k, v, km
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk", [(130, 5376), (2100, 77), (77, 2100)])
+def test_cross_attention_kernel_matches_plain(card, dtype, lq, lk):
+    """K6 at key lengths past what a whole-row design keeps in shared
+    memory; fp32 to 2e-5, bf16 to one bf16 ulp of the largest output."""
+    q, k, v, km = _rect(card, lq, lk, dtype)
+    before = kernels.launches["cross_attention"]
+    out = ak.cross_attention_core(q, k, v, km)
+    ref = ak.cross_attention_core_plain(q, k, v, km)
+    assert kernels.launches["cross_attention"] == before + 1
+    assert out.dtype == torch.float32 and not out[2].any()
+    tol = 2e-5 if dtype == torch.float32 else _bf16_ulp(float(ref.abs().max()))
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk", [(2100, 400), (400, 2100), (64, 5376)])
+def test_attention_bwd_rect_kernel_matches_plain(card, dtype, lq, lk):
+    """K3-rect: each gradient against its own largest magnitude, fp32 to
+    1e-5 of it, bf16 to one bf16 ulp (2^-8) of it (a P or dS element at a
+    rounding midpoint may round either way)."""
+    q, k, v, km = _rect(card, lq, lk, dtype)
+    do = torch.randn(q.shape, device=card)
+    before = kernels.launches["attention_bwd_rect"]
+    got = ak.attention_bwd(q.float(), k, v, do, km, dtype)
+    ref = ak.attention_bwd_plain(q.float(), k, v, do, km, dtype)
+    assert kernels.launches["attention_bwd_rect"] == before + 1
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=0, atol=rel * float(r.abs().max()))
+
+
 def test_par_kernels_match_plain(card):
     cfg = ParConfig(num_iter=3)
     g = torch.Generator(device=card).manual_seed(0)
@@ -82,6 +132,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):
         pk.par_affinity(torch.zeros((1, 3, 8, 8), device=card, dtype=torch.float64),
                         ParConfig())
+    with pytest.raises(ValueError):
+        ak.cross_attention_core(q, k[:, :, :8], v[:, :, :8], km[:, :8])   # fp16
     with pytest.raises(RuntimeError):                        # score rows > smem
         ak.attention_core(*_qkv(card, 1, 2, 4096, 64, torch.float32, (4096,)))
     # the refused request leaves no error behind for the next launch

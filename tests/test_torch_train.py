@@ -1,0 +1,317 @@
+"""The port's training side (weclip_tpu_torch/train/*, models/weclip.py's
+training forward, the config copy) against the JAX package at a tiny size
+(width 64, 2 heads, 4 layers, decoder and CoMer width 32, PAR dilations
+(1, 2) with 4 iterations), the same weights (carried by convert.py, the
+CoMer gates opened) on the same numpy-seeded inputs under the fp32 policy.
+
+Tolerances: 1e-5 for the losses on given inputs, 1e-6 relative for three
+AdamW updates against optax, 1e-4 for the forward (seg logits, the learned
+affinity, refined CAMs) and the per-step losses, 5e-4 for gradients and
+for parameters after three steps, 1e-3 relative (L2, per leaf) for the
+update of three steps, exact equality for pseudo labels."""
+
+import dataclasses
+import logging
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tests import tiny
+from tests.test_torch_comer import open_gates
+from weclip_tpu.core import config as jconfig
+from weclip_tpu.core import precision as jprec
+from weclip_tpu.models import weclip as jweclip
+from weclip_tpu.ops.resize import resize_bilinear as jresize
+from weclip_tpu.train import losses as jlosses
+from weclip_tpu.train import optimizer as joptim
+from weclip_tpu.train import step as jstep
+from weclip_tpu_torch import convert
+from weclip_tpu_torch.core import config as tconfig
+from weclip_tpu_torch.core import precision as tprec
+from weclip_tpu_torch.models import weclip as tweclip
+from weclip_tpu_torch.train import losses as tlosses
+from weclip_tpu_torch.train import optimizer as toptim
+from weclip_tpu_torch.train import step as tstep
+from weclip_tpu_torch.train import trainer as ttrainer
+
+LOSS_TOL = 1e-5
+FWD_TOL = 1e-4
+GRAD_TOL = 5e-4
+UPDATE_TOL = 1e-3
+
+
+def _np(t):
+    return jax.tree_util.tree_map(np.asarray, t)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """(jax cfg, port cfg, jax frozen, jax params, jax batch, port frozen,
+    port params, port batch)."""
+    cfg = tiny.tiny_config(num_classes=6)
+    cfg = dataclasses.replace(
+        cfg, clip=dataclasses.replace(tiny.tiny_clip_config(layers=4), embedding_dim=32),
+        comer=jconfig.ComerConfig(enabled=True, stem_width=8, pyramid_dims=(16, 16, 16),
+                                  mrfp_dilations=(1, 2), cti_heads=2,
+                                  interaction_indexes=(1, 2)),
+        optimizer=dataclasses.replace(cfg.optimizer, learning_rate=5e-5, warmup_iter=0),
+        train=dataclasses.replace(cfg.train, max_iters=3))
+    tcfg = tconfig.from_dict(dataclasses.asdict(cfg))
+    frozen, clip_params = tiny.tiny_frozen(cfg)
+    params = jweclip.init_trainable_params(jax.random.PRNGKey(1), cfg)
+    params = dict(_np(params), comer=open_gates(params["comer"], 3))
+    batch = tiny.tiny_batch(cfg, clip_params, batch=2)
+    tbatch = tweclip.Batch(*(torch.from_numpy(np.array(x)) for x in batch))
+    return (cfg, tcfg, frozen, params, batch, convert.frozen_from_jax(_np(frozen)),
+            convert.params_from_jax(params), tbatch)
+
+
+def test_config_matches_jax():
+    """(6) the port's config reads configs/voc_comer.yaml into the JAX
+    package's fields; only the TPU mesh section is not ported."""
+    ref = dataclasses.asdict(jconfig.load_config("configs/voc_comer.yaml"))
+    got = dataclasses.asdict(tconfig.load_config("configs/voc_comer.yaml"))
+    assert set(ref) - set(got) == {"mesh"} and set(got) <= set(ref)
+    assert got == {k: v for k, v in ref.items() if k != "mesh"}
+    assert got["comer"]["enabled"] and got["comer"]["interaction_indexes"] == (2, 5, 8, 10)
+
+
+def test_losses_match_jax():
+    """(4) seg_loss (with an all-ignored batch), cams_to_affinity_label and
+    aff_loss against the JAX functions on the same inputs."""
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((2, 6, 32, 32)).astype(np.float32)
+    label = rng.integers(0, 6, (2, 32, 32)).astype(np.int32)
+    label[0, :8] = 255
+    label[1, :, :5] = 0
+    for lab in (label, np.full_like(label, 255)):
+        ref = jlosses.seg_loss(jnp.asarray(logits), jnp.asarray(lab))
+        got = tlosses.seg_loss(torch.from_numpy(logits), torch.from_numpy(lab).long())
+        np.testing.assert_allclose(float(got), float(ref), rtol=LOSS_TOL, atol=LOSS_TOL)
+    assert float(got) == 0.0
+
+    rmask = tlosses.radius_mask(4, 4, 1)
+    np.testing.assert_array_equal(rmask, jlosses.radius_mask(4, 4, 1))
+    cam = rng.integers(0, 3, (2, 64, 64)).astype(np.int32)
+    cam[0, 16:32, 0:16] = 255
+    ref = jlosses.cams_to_affinity_label(jnp.asarray(cam), jnp.asarray(rmask))
+    got = tlosses.cams_to_affinity_label(torch.from_numpy(cam).long(),
+                                         torch.from_numpy(rmask))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert (got == 255).any() and (got == 1).any() and (got == 0).any()
+    pred = rng.uniform(0, 1, got.shape).astype(np.float32)
+    for a, r in zip(tlosses.aff_loss(torch.from_numpy(pred), got),
+                    jlosses.aff_loss(jnp.asarray(pred), ref)):
+        np.testing.assert_allclose(float(a), float(r), rtol=LOSS_TOL)
+
+
+def test_adamw_matches_optax():
+    """(4) three poly-warmup AdamW updates against optax on the same
+    gradients: warmup at step 0, poly at 1, and step 2 past max_iters (the
+    schedule holds its last value)."""
+    ocfg = jconfig.OptimizerConfig(learning_rate=1e-3, warmup_iter=1, weight_decay=0.05)
+    tcfg = tconfig.OptimizerConfig(**dataclasses.asdict(ocfg))
+    rng = np.random.default_rng(1)
+    p0 = {"a": rng.standard_normal((5, 7)).astype(np.float32),
+          "b": rng.standard_normal(7).astype(np.float32)}
+    grads = [{k: rng.standard_normal(v.shape).astype(np.float32) for k, v in p0.items()}
+             for _ in range(3)]
+    tx = joptim.make_optimizer(ocfg, max_iters=2)
+    jp = jax.tree_util.tree_map(jnp.asarray, p0)
+    state = tx.init(jp)
+    tp = [torch.from_numpy(p0[k].copy()).requires_grad_(True) for k in ("a", "b")]
+    opt, sched = toptim.make_optimizer(tp, tcfg, max_iters=2)
+    mult = toptim.poly_warmup_multiplier(tcfg, 2)
+    assert [mult(t) for t in range(4)] == pytest.approx([1e-6, 0.5, 0.5, 0.5])
+    for g in grads:
+        upd, state = tx.update(jax.tree_util.tree_map(jnp.asarray, g), state, jp)
+        jp = jax.tree_util.tree_map(lambda a, u: a + u, jp, upd)
+        for t, k in zip(tp, ("a", "b")):
+            t.grad = torch.from_numpy(g[k])
+        opt.step()
+        sched.step()
+        for t, k in zip(tp, ("a", "b")):
+            np.testing.assert_allclose(t.detach().numpy(), np.asarray(jp[k]),
+                                       rtol=1e-6, atol=1e-7)
+    assert not np.allclose(tp[0].detach().numpy(), p0["a"], atol=1e-4)
+
+
+def test_forward_train_matches_jax(setup):
+    """(5) forward_train with CoMer, dropout off, fp32: seg logits and the
+    learned affinity within 1e-4, pseudo labels exactly, before the
+    seg-trans iteration (plain fusion) and after it (gated by the learned
+    affinity)."""
+    cfg, tcfg, frozen, params, batch, tfrozen, tparams, tbatch = setup
+
+    @jax.jit
+    def jfwd(p):
+        feats, head_out, attn, _ = jweclip.backbone_and_heads(p, frozen, batch, cfg,
+                                                              None, jprec.FP32)
+        return head_out.seg, attn, [jweclip.pseudo_labels(
+            frozen, feats, attn, batch, cfg, jnp.bool_(gate), (64, 64), jprec.FP32)
+            for gate in (False, True)]
+
+    seg, attn, labels = jfwd(jax.tree_util.tree_map(jnp.asarray, params))
+    got = tweclip.forward_train(tparams, tfrozen, tbatch, tcfg, False, None, tprec.FP32)
+    for name, ref in (("seg", seg), ("attn_pred", attn), ("cams_refined", labels[0][1])):
+        np.testing.assert_allclose(getattr(got, name).detach().numpy(), np.asarray(ref),
+                                   rtol=FWD_TOL, atol=FWD_TOL, err_msg=name)
+    np.testing.assert_array_equal(got.cam_labels.numpy(), np.asarray(labels[0][0]))
+    assert len(np.unique(got.cam_labels.numpy())) > 1
+
+    feats, _, attn_t, _ = tweclip.backbone_and_heads(tparams, tfrozen, tbatch, tcfg,
+                                                     tprec.FP32)
+    tl, tr = tweclip.pseudo_labels(tfrozen, feats, attn_t.detach(), tbatch, tcfg, True,
+                                   (64, 64), tprec.FP32)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(labels[1][1]), rtol=FWD_TOL,
+                               atol=FWD_TOL)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(labels[1][0]))
+
+
+def _jax_loss(cfg, frozen, batch):
+    """The JAX step's loss (weclip_tpu/train/step.py::loss_fn), dropout off."""
+    g = cfg.dataset.crop_size // cfg.clip.patch_size
+    rmask = jnp.asarray(jlosses.radius_mask(g, g, cfg.train.radius))
+
+    def loss(p):
+        out = jweclip.forward_train(p, frozen, batch, cfg, jnp.bool_(False), None,
+                                    jprec.FP32)
+        seg = out.seg.reshape(batch.img.shape[0], g, g, -1).transpose(0, 3, 1, 2)
+        seg_hw = jresize(seg, cfg.dataset.crop_size, cfg.dataset.crop_size)
+        pseudo = jax.lax.stop_gradient(out.cam_labels)
+        aff_label = jlosses.cams_to_affinity_label(pseudo, rmask)
+        return (jlosses.seg_loss(seg_hw, pseudo)
+                + cfg.train.attn_loss_weight * jlosses.aff_loss(out.attn_pred, aff_label)[0])
+    return loss
+
+
+def test_loss_gradients_match_jax(setup):
+    """(5) the gradient of the training loss with respect to every head
+    and CoMer leaf, gates open, against jax.grad."""
+    cfg, tcfg, frozen, params, batch, tfrozen, tparams, tbatch = setup
+    ref_loss, ref = jax.jit(jax.value_and_grad(_jax_loss(cfg, frozen, batch)))(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    state = tstep.create_train_state(None, tcfg, "cpu", params=tparams)
+    loss, _ = tstep.make_loss_fn(tcfg, tprec.FP32)(state.params, tfrozen, tbatch,
+                                                   False, None, None, None)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=FWD_TOL, atol=FWD_TOL)
+    ref_t = convert.params_from_jax(_np(ref))
+    got = tstep.param_leaves(state.params)
+    want = tstep.param_leaves(ref_t)
+    assert len(got) == len(want)
+    for t, r in zip(got, want):
+        np.testing.assert_allclose(t.grad.numpy(), r.numpy(), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL)
+    assert all(float(t.grad.abs().max()) > 0 for t in tstep.param_leaves(state.params["comer"]))
+
+
+def _named(tree, prefix=""):
+    """(path, tensor) of a parameter tree, in ``step.param_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _named(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _named(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def _not_key_bias(name, t):
+    """Elements of a leaf that are not attention key biases.  The softmax
+    cancels a key bias's gradient, so it is rounding in either package, and
+    AdamW scales that rounding to a full step of either sign: every CTI
+    ``k_b`` and the key third of the decoder's packed ``in_b``."""
+    keep = torch.ones(t.shape, dtype=torch.bool)
+    if name.startswith("/comer/cti/") and name.endswith("/k_b"):
+        keep[...] = False
+    if name == "/head/decoder/blocks/attn/in_b":
+        d = t.shape[-1] // 3
+        keep[..., d:2 * d] = False
+    return keep
+
+
+def test_train_steps_in_lockstep_with_jax(setup):
+    """(5) three make_train_step steps against JAX's: each step's loss
+    within 1e-4, the parameters after the third within 5e-4, and the
+    update of the three steps (params after minus before, about 1e-3 per
+    element at this learning rate) within 1e-3 relative of JAX's in each
+    leaf, key biases aside."""
+    cfg, tcfg, frozen, params, batch, tfrozen, tparams, tbatch = setup
+    jstate, tx = jstep.create_train_state(jax.random.PRNGKey(0), cfg)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    jstate = jstep.TrainState(jp, tx.init(jp), jnp.zeros((), jnp.int32))
+    jfn = jstep.make_train_step(cfg, tx, policy=jprec.FP32)
+    state = tstep.create_train_state(None, tcfg, "cpu", params=tparams)
+    tfn = tstep.make_train_step(tcfg, tprec.FP32)
+    for _ in range(3):
+        jstate, jm = jfn(jstate, frozen, batch, None)
+        state, m = tfn(state, tfrozen, tbatch)
+        for name in ("loss", "seg_loss", "attn_loss", "pseudo_acc"):
+            np.testing.assert_allclose(float(getattr(m, name)),
+                                       float(getattr(jm, name)),
+                                       rtol=FWD_TOL, atol=FWD_TOL, err_msg=name)
+    assert state.step == 3
+    want = tstep.param_leaves(convert.params_from_jax(_np(jstate.params)))
+    moved = 0
+    for (name, t), r, p0 in zip(_named(state.params), want, tstep.param_leaves(tparams)):
+        np.testing.assert_allclose(t.detach().numpy(), r.numpy(), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=name)
+        keep = _not_key_bias(name, p0)
+        if keep.any():
+            upd, upd_jax = (t.detach() - p0).double()[keep], (r - p0).double()[keep]
+            rel = float((upd - upd_jax).norm() / upd_jax.norm())
+            assert rel <= UPDATE_TOL, (name, rel)
+        moved += int(not torch.equal(t.detach(), p0))
+    assert moved == len(want)
+
+
+def test_step_trains_against_given_labels(setup):
+    """make_train_step's ``pseudo`` takes the place of the forward's own
+    labels: given those same labels the step is the same; given all-ignored
+    labels the segmentation loss is 0."""
+    _, tcfg, _, _, _, tfrozen, tparams, tbatch = setup
+    fn = tstep.make_train_step(tcfg, tprec.FP32)
+    with torch.no_grad():
+        labels = tweclip.forward_train(tparams, tfrozen, tbatch, tcfg, False, None,
+                                       tprec.FP32).cam_labels
+    runs = []
+    for pseudo in (None, labels, torch.full_like(labels, 255)):
+        state = tstep.create_train_state(None, tcfg, "cpu", params=tparams)
+        _, m = fn(state, tfrozen, tbatch, pseudo=pseudo)
+        runs.append((m, tstep.param_leaves(state.params)))
+    (own, p_own), (given, p_given), (ignored, _) = runs
+    assert torch.equal(own.loss, given.loss) and torch.equal(own.pseudo_acc, given.pseudo_acc)
+    assert all(torch.equal(a, b) for a, b in zip(p_own, p_given))
+    assert float(ignored.seg_loss) == 0.0 and float(own.seg_loss) > 0.0
+
+
+def test_trainer_runs_and_logs(setup, caplog):
+    """The trimmed trainer: two steps on an in-memory dataset with
+    dropout on, logged metrics, the parts not ported refused."""
+    cfg, tcfg, tfrozen = setup[0], setup[1], setup[5]
+    rng = np.random.default_rng(2)
+    data = []
+    for i in range(3):
+        present = np.zeros(5, bool)
+        present[[i, 4]] = True
+        data.append({"img": rng.standard_normal((3, 64, 64)).astype(np.float32),
+                     "present_mask": present})
+    tcfg = dataclasses.replace(
+        tcfg, train=dataclasses.replace(tcfg.train, samples_per_gpu=2, log_iters=1),
+        precision=dataclasses.replace(tcfg.precision, compute_dtype="float32"))
+    with caplog.at_level(logging.INFO, logger="weclip_tpu_torch"):
+        state = ttrainer.train(tcfg, data, max_steps=2, device="cpu", frozen=tfrozen)
+    assert state.step == 2
+    lines = [r.getMessage() for r in caplog.records if "seg_loss" in r.getMessage()]
+    assert len(lines) == 2 and "iter 2/2" in lines[1]
+    first = next(ttrainer.batches(data, 2, 5))
+    assert first["img"].shape == (2, 3, 64, 64)
+    with pytest.raises(NotImplementedError):
+        ttrainer.train(tcfg, data, max_steps=1, device="cpu", resume=True)
+    saves = dataclasses.replace(tcfg, train=dataclasses.replace(
+        tcfg.train, eval_iters=1, ckpt_start_iter=0))
+    with pytest.raises(NotImplementedError):
+        ttrainer.train(saves, data, max_steps=1, device="cpu", frozen=tfrozen)

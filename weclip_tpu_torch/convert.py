@@ -9,7 +9,10 @@ this module returns the port's trees of fp32 torch tensors:
   ``out_w`` (D, D));
 - the frozen state: ``visual``, ``logit_scale``, ``fg_text``, ``bg_text``;
 - the trainable ``head`` tree: the fuse projections stacked on a leading
-  layer axis, the decoder blocks stacked like the ViT's.
+  layer axis, the decoder blocks stacked like the ViT's;
+- the trainable ``comer`` tree of the ViT-CoMer branch, whose ``mrfp``
+  (one per pyramid level) and ``cti`` (one per interaction) entries are
+  lists of dicts.
 
 Both packages use the same key names and layouts, so the conversion checks
 the structure and converts the leaves; ``to_numpy`` goes back.  The text
@@ -36,6 +39,13 @@ _FUSE = {k: None for k in ("proj1_w", "proj1_b", "proj2_w", "proj2_b",
                            "fuse_w", "fuse_b")}
 _HEAD = {"fuse": _FUSE,
          "decoder": {"blocks": _BLOCK, "pred_w": None, "pred_b": None}}
+_XATTN = tuple(f"{m}_{p}" for m in "qkvo" for p in "wb")
+_CTI = {"inj": _XATTN, "ext": _XATTN, "ln_q": _LN, "ln_kv": _LN}
+_COMER = {"stem": {**{f"conv{i}_w": None for i in range(1, 6)},
+                   **{f"gn{i}": _LN for i in range(1, 6)}},
+          "vit_proj_w": None, "vit_proj_b": None, "mrfp": None, "cti": None,
+          "out_gn": _LN, "out_w": None, "out_b": None,
+          **{f"lvl_proj_{n}_{p}": None for n in ("c3", "c4", "c5") for p in "wb"}}
 
 
 def _select(tree: Mapping, spec, where: str):
@@ -57,6 +67,8 @@ def _select(tree: Mapping, spec, where: str):
 def _tensors(tree, device, where: str):
     if isinstance(tree, Mapping):
         return {k: _tensors(v, device, f"{where}.{k}") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, device, f"{where}[{i}]") for i, v in enumerate(tree)]
     arr = np.asarray(tree)
     if arr.dtype.kind in "biuOSU":
         raise TypeError(f"{where}: expected floating weights, got {arr.dtype}")
@@ -100,16 +112,36 @@ def frozen_from_jax(frozen: Mapping, device="cpu") -> Params:
     return out
 
 
+def comer_from_jax(comer: Mapping, device="cpu") -> Params:
+    """The ViT-CoMer branch (``params["comer"]``)."""
+    tree = _select(comer, _COMER, "comer")
+    if len(tree["mrfp"]) != 3:
+        raise ValueError(f"comer.mrfp: expected 3 pyramid levels, got {len(tree['mrfp'])}")
+    mrfp = []
+    for i, branch in enumerate(tree["mrfp"]):
+        convs = tuple(k for k in branch if k.startswith("d") and k.endswith("_w"))
+        if not convs:
+            raise KeyError(f"comer.mrfp[{i}]: no dilated convolutions")
+        mrfp.append(_select(branch, {**{k: None for k in convs}, "fuse_w": None,
+                                     "gn": _LN}, f"comer.mrfp[{i}]"))
+    tree["mrfp"] = mrfp
+    tree["cti"] = [_select(c, _CTI, f"comer.cti[{i}]") for i, c in enumerate(tree["cti"])]
+    return _tensors(tree, device, "comer")
+
+
 def params_from_jax(params: Mapping, device="cpu") -> Params:
-    """The trainable parameters (``{"head": ...}``); a CoMer branch is not
-    ported yet and is refused."""
+    """The trainable parameters: ``{"head": ...}``, and ``"comer"`` where
+    the JAX tree has the branch."""
+    out = {"head": head_from_jax(params["head"], device)}
     if "comer" in params:
-        raise NotImplementedError("the CoMer branch is not ported yet")
-    return {"head": head_from_jax(params["head"], device)}
+        out["comer"] = comer_from_jax(params["comer"], device)
+    return out
 
 
 def to_numpy(tree) -> Any:
-    """A port tree back to nested dicts of fp32 numpy arrays."""
+    """A port tree back to nested dicts (and lists) of fp32 numpy arrays."""
     if isinstance(tree, Mapping):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(v) for v in tree]
     return tree.detach().to("cpu", torch.float32).numpy()

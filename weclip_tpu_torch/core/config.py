@@ -1,10 +1,11 @@
-"""Typed configuration: the dataclasses the ported inference path reads.
+"""Typed configuration: the dataclasses the ported inference and training
+paths read.
 
 An own copy of ``weclip_tpu/core/config.py`` (the port imports nothing of
 the JAX package).  Field names and defaults are identical, so a bare
 ``Config()`` is the reference VOC setup and ``load_config`` overlays the same
-YAML files.  Training, optimizer, mesh and CoMer sections are not ported
-yet; ``_apply`` ignores keys of sections this copy does not have.
+YAML files.  The TPU mesh section is not ported (``torch.distributed`` is
+later work); ``_apply`` ignores keys of sections this copy does not have.
 """
 
 from __future__ import annotations
@@ -29,6 +30,34 @@ class DatasetConfig:
     mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
     std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
     decoded_cache_dir: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    split: str = "train_aug"
+    samples_per_gpu: int = 4               # per-step batch on one card
+    max_iters: int = 30000
+    eval_iters: int = 2000
+    log_iters: int = 200
+    seed: int = 1
+    # iteration after which the learned decoder affinity gates the CLIP
+    # attention fusion
+    seg_trans_start_iter: int = 15000
+    ckpt_start_iter: int = 26000
+    attn_loss_weight: float = 0.1
+    # radius of the affinity-label neighbourhood mask
+    radius: int = 8
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    learning_rate: float = 2e-4
+    betas: Tuple[float, float] = (0.9, 0.999)
+    weight_decay: float = 0.01
+    head_lr_mult: float = 10.0             # the trainable heads run at 10x
+    warmup_iter: int = 50
+    warmup_ratio: float = 1e-6
+    power: float = 1.0
 
 
 @dataclass(frozen=True)
@@ -99,13 +128,36 @@ class PrecisionConfig:
 
 
 @dataclass(frozen=True)
+class ComerConfig:
+    """ViT-CoMer branch: CNN pyramid, MRFP and CTI cross-attention."""
+    enabled: bool = False
+    stem_width: int = 64
+    pyramid_dims: Tuple[int, int, int] = (128, 256, 256)   # C3, C4, C5
+    mrfp_dilations: Tuple[int, ...] = (1, 2, 3)
+    cti_heads: int = 4                     # head width 64 at embed 256
+    interaction_indexes: Tuple[int, ...] = (2, 5, 8, 11)   # ViT blocks after which CTI runs
+
+
+@dataclass(frozen=True)
+class WorkDirConfig:
+    dir: str = "work_dir_voc"
+    ckpt_dir: str = "checkpoints"
+    pred_dir: str = "predictions"
+    tb_logger_dir: str = "tb_logger"
+
+
+@dataclass(frozen=True)
 class Config:
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     clip: ClipConfig = field(default_factory=ClipConfig)
     cam: CamConfig = field(default_factory=CamConfig)
     par: ParConfig = field(default_factory=ParConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
+    comer: ComerConfig = field(default_factory=ComerConfig)
+    work_dir: WorkDirConfig = field(default_factory=WorkDirConfig)
 
 
 def _apply(dc: Any, data: dict) -> Any:

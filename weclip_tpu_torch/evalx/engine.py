@@ -130,7 +130,8 @@ def make_eval_scale1(cfg: Config, policy: precision.Policy = precision.DEFAULT,
         feats, head_out, attn_pred, _ = weclip.backbone_and_heads(
             params, frozen, batch2, cfg, policy,
             with_attn=with_cam,       # seg-only mode skips the map export
-            attn_rows=b)              # the flipped half's maps are never used
+            attn_rows=b,              # the flipped half's maps are never used
+            decoder_kernel=True)
         k = cfg.dataset.num_classes
         seg = head_out.seg.reshape(2 * b, g, g, k).permute(0, 3, 1, 2)
         seg_u = seg[:b]
@@ -176,7 +177,8 @@ def make_eval_scale2(cfg: Config, policy: precision.Policy = precision.DEFAULT,
         imgs2 = prepare_scale2_images(imgs1, sizes, s2, prep.canvas_in2)
         batch2 = _flip_concat(sb, imgs2, present_mask)
         _, head_out, _, _ = weclip.backbone_and_heads(
-            params, frozen, batch2, cfg, policy, with_attn=False)
+            params, frozen, batch2, cfg, policy, with_attn=False,
+            decoder_kernel=True)
         k = cfg.dataset.num_classes
         seg = head_out.seg.reshape(2 * b, g, g, k).permute(0, 3, 1, 2)
         return (seg[:b] + _flip_valid(seg[b:], sb.gw, 3)) / 2.0

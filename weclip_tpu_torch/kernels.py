@@ -40,6 +40,14 @@ SIGNATURES = {
         "attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _P],
     },
+    "cross_attention": {
+        # q(pre-scaled), k, v, kbias, out, B, H, Lq, Lk, Dh, bf16, stream
+        "xattn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # q(pre-scaled), k, v, do, kbias, dq, dk, dv, stats, B, H, Lq, Lk,
+        # Dh, bf16, stream
+        "xattn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _P],
+    },
     "par": {
         # img, aff, posw, B, H, W, dilations, n_dil, w1, stream
         "par_affinity": [_P, _P, _P, _I, _I, _I, _P, _I, _F, _P],
@@ -53,6 +61,8 @@ launches: Dict[str, int] = {
     "attention_fwd_export": 0,   # K1
     "attention_fwd": 0,          # K2
     "attention_bwd": 0,          # K3
+    "cross_attention": 0,        # K6
+    "attention_bwd_rect": 0,     # K3-rect
     "par_affinity": 0,           # K4
     "par_propagate": 0,          # K5
 }

@@ -27,6 +27,8 @@ Params = Dict[str, Any]
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -72,13 +74,16 @@ def block_forward(
     valid: Optional[torch.Tensor] = None,
     policy: precision.Policy = precision.DEFAULT,
     want_attn: bool = True,
+    allow_kernel: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """Pre-LN residual attention block.  Returns (x_out, head-mean attention
     (B, L, L) or None, ln_1 output).  On CUDA the attention runs the forward
-    kernels (K1 with the map, K2 without); callers hold no gradient."""
+    kernels (K1 with the map, K2 without), which hold no gradient;
+    ``allow_kernel=False`` takes the plain, differentiable attention."""
     a = layer_norm(x, p["ln_1"]["g"], p["ln_1"]["b"])
     attn_out, attn_w = mha_auto(a, _mha_params(p), n_heads, valid=valid,
-                                policy=policy, want_weights=want_attn)
+                                policy=policy, want_weights=want_attn,
+                                allow_kernel=allow_kernel)
     x = x + attn_out
     x = x + mlp_forward(p["mlp"], layer_norm(x, p["ln_2"]["g"], p["ln_2"]["b"]), policy)
     return x, attn_w, a

@@ -1,11 +1,13 @@
 """Trainable heads: per-layer MLP fusion + transformer decoder + class logits
-(port of weclip_tpu/models/heads.py, inference side).
+(port of weclip_tpu/models/heads.py).
 
 The 11 per-layer MLPs are stacked on a leading axis and applied in one
-batched product; the decoder blocks reuse the ViT block with the masked
-attention.  On CUDA the decoder attention runs the export-free forward
-kernel (K2, Dh=32), whose per-layer maps no consumer reads.  Channel
-dropout (training) is not ported yet.
+batched product, followed by channel dropout drawn from an explicit
+generator; the decoder blocks reuse the ViT block with the masked
+attention.  Gradient-free callers (evaluation) run the decoder attention
+through the export-free forward kernel (K2, Dh=32) on CUDA and skip its
+per-layer maps, which no consumer reads; training takes the plain,
+differentiable attention and returns the maps, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -97,8 +99,11 @@ def init_head_params(gen: torch.Generator, n_layers: int = 11, in_dim: int = 768
 # ---------------------------------------------------------------------------
 
 def fuse_forward(p: Params, layer_tokens: torch.Tensor,
+                 gen: Optional[torch.Generator] = None,
+                 dropout_rate: float = 0.1,
                  policy: precision.Policy = precision.DEFAULT) -> torch.Tensor:
-    """Stacked per-layer MLPs + channel concat (layer order) + 1x1 fuse.
+    """Stacked per-layer MLPs + channel concat (layer order) + 1x1 fuse,
+    then, with a generator, Dropout2d (whole channels per image).
     layer_tokens: (N_layers, B, P, D) patch tokens.  Returns (B, P, embed)
     fp32."""
     cd = policy.compute_dtype
@@ -109,30 +114,34 @@ def fuse_forward(p: Params, layer_tokens: torch.Tensor,
     h = precision.matmul_f32(h, p["proj2_w"].transpose(1, 2), cd) + p["proj2_b"][:, None]
     e = h.shape[-1]
     h = h.reshape(nl, b, pp, e).permute(1, 2, 0, 3).reshape(b, pp, nl * e)
-    return precision.matmul_f32(h, p["fuse_w"].t(), cd) + p["fuse_b"]
+    out = precision.matmul_f32(h, p["fuse_w"].t(), cd) + p["fuse_b"]
+    if gen is not None and dropout_rate > 0.0:
+        keep = torch.rand((b, 1, out.shape[-1]), generator=gen,
+                          device=out.device) < 1.0 - dropout_rate
+        out = out * keep / (1.0 - dropout_rate)
+    return out
 
 
 def decoder_forward(p: Params, fts: torch.Tensor, n_heads: int = 8,
                     valid_p: Optional[torch.Tensor] = None,
-                    policy: precision.Policy = precision.DEFAULT
+                    policy: precision.Policy = precision.DEFAULT,
+                    allow_kernel: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """3-block transformer + linear prediction.  fts: (B, P, C).  Returns
-    (seg logits (B, P, num_classes), zero-length decoder-map stack): the
-    maps are a dead output at inference, so the blocks skip them."""
+    (seg logits (B, P, num_classes), per-layer attention (layers, B, P, P)).
+    ``allow_kernel`` (gradient-free callers): K2 on CUDA and a zero-length
+    map stack, the maps being a dead output at inference."""
     x = fts
     n_blocks = p["blocks"]["ln_1"]["g"].shape[0]
+    attns = []
     for i in range(n_blocks):
-        x, _, _ = vit.block_forward(vit.block_params(p["blocks"], i), x, n_heads,
-                                    valid=valid_p, policy=policy, want_attn=False)
+        x, attn_w, _ = vit.block_forward(vit.block_params(p["blocks"], i), x, n_heads,
+                                         valid=valid_p, policy=policy,
+                                         want_attn=not allow_kernel,
+                                         allow_kernel=allow_kernel)
+        attns.append(attn_w)
     seg = precision.matmul_f32(x, p["pred_w"].t(), policy.compute_dtype) + p["pred_b"]
-    b, pp = fts.shape[:2]
-    return seg, torch.zeros((0, b, pp, pp), device=fts.device, dtype=torch.float32)
-
-
-def head_forward(p: Params, layer_tokens: torch.Tensor,
-                 valid_p: Optional[torch.Tensor] = None,
-                 policy: precision.Policy = precision.DEFAULT) -> HeadOutputs:
-    fused = fuse_forward(p["fuse"], layer_tokens, policy=policy)
-    seg, dec_attn = decoder_forward(p["decoder"], fused, valid_p=valid_p,
-                                    policy=policy)
-    return HeadOutputs(seg, fused, dec_attn)
+    if allow_kernel:
+        b, pp = fts.shape[:2]
+        return seg, torch.zeros((0, b, pp, pp), device=fts.device, dtype=torch.float32)
+    return seg, torch.stack(attns)

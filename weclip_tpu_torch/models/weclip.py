@@ -1,12 +1,12 @@
-"""WeCLIP model assembly, inference side (port of weclip_tpu/models/weclip.py):
-frozen CLIP -> heads -> the CAM -> walk -> PAR pseudo-label chain, batched
-over images and the class bucket.  Training (losses, the gated train
-fusion, dropout) is not ported yet."""
+"""WeCLIP model assembly (port of weclip_tpu/models/weclip.py): frozen CLIP
+-> heads (with the ViT-CoMer branch where the config enables it) -> the
+CAM -> walk -> PAR pseudo-label chain, batched over images and the class
+bucket, for evaluation and for the training forward."""
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -15,6 +15,8 @@ from weclip_tpu_torch.core import precision
 from weclip_tpu_torch.core.config import Config
 from weclip_tpu_torch.models import heads
 from weclip_tpu_torch.models.clip import vit
+from weclip_tpu_torch.models.comer import comer_forward, init_comer_params
+from weclip_tpu_torch.ops.resize import resize_bilinear
 from weclip_tpu_torch.refine import affinity as aff
 from weclip_tpu_torch.refine.par import par_refine_auto
 
@@ -27,6 +29,13 @@ class Batch(NamedTuple):
     gh: torch.Tensor             # (B,) valid grid heights
     gw: torch.Tensor             # (B,) valid grid widths
     present_mask: torch.Tensor   # (B, C_fg) bool image-level class set
+
+
+class ForwardOutputs(NamedTuple):
+    seg: torch.Tensor            # (B, P, num_classes) decoder logits (grid res)
+    cam_labels: torch.Tensor     # (B, H, W) int64 pseudo labels
+    attn_pred: torch.Tensor      # (B, P, P) learned Gram affinity
+    cams_refined: torch.Tensor   # (B, MC, P) refined CAMs (pre-PAR)
 
 
 def _lut_select(lut: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -42,20 +51,35 @@ def head_policy(cfg: Config) -> precision.Policy:
                                  cfg.precision.softmax_dtype)
 
 
-@torch.no_grad()
 def backbone_and_heads(params: Dict[str, Any], frozen: Dict[str, Any],
                        batch: Batch, cfg: Config, policy: precision.Policy,
-                       with_attn: bool = True, attn_rows: int = None):
-    """Frozen CLIP forward + fuse/decoder/affinity heads.
+                       with_attn: bool = True, attn_rows: Optional[int] = None,
+                       gen: Optional[torch.Generator] = None,
+                       decoder_kernel: bool = False):
+    """Frozen CLIP forward + fuse/decoder/affinity heads, plus the CoMer
+    branch when ``params`` has it and the config enables it.
+
+    The frozen ViT forward runs without gradient; the fuse head, CoMer and
+    the decoder carry it wherever the caller has it enabled.  ``gen`` draws
+    the fuse head's channel dropout (None: off).  ``decoder_kernel`` sends
+    the decoder attention to K2 on CUDA: only gradient-free callers (the
+    evaluation engine) may set it.  The heads run at their own (fp32)
+    policy, the CoMer branch at the backbone policy.
     Returns (feats, head_out, attn_pred, valid_p)."""
     feats = vit.vision_forward_frozen(
         frozen["visual"], batch.img, batch.pos_emb, batch.valid, cfg.clip,
         policy=policy, with_attn=with_attn, attn_rows=attn_rows)
     layer_tokens = feats.layer_tokens[:, :, 1:batch.valid.shape[1], :]
     valid_p = batch.valid[:, 1:].float()
-    head_out = heads.head_forward(params["head"], layer_tokens,
-                                  valid_p=batch.valid[:, 1:],
-                                  policy=head_policy(cfg))
+    hp = head_policy(cfg)
+    fused = heads.fuse_forward(params["head"]["fuse"], layer_tokens, gen, policy=hp)
+    if "comer" in params and cfg.comer.enabled:
+        fused = fused + comer_forward(params["comer"], batch.img, layer_tokens,
+                                      batch.valid[:, 1:], cfg.comer, policy)
+    seg, dec_attn = heads.decoder_forward(params["head"]["decoder"], fused,
+                                          valid_p=batch.valid[:, 1:], policy=hp,
+                                          allow_kernel=decoder_kernel)
+    head_out = heads.HeadOutputs(seg, fused, dec_attn)
     attn_pred = aff.gram_affinity(head_out.fused, valid_p)
     return feats, head_out, attn_pred, valid_p
 
@@ -118,6 +142,58 @@ def pseudo_label_chain(
         return _lut_select(lut, idx), refined
 
 
+def pseudo_labels(frozen: Dict[str, Any], feats: vit.VisionFeatures,
+                  attn_pred: torch.Tensor, batch: Batch, cfg: Config,
+                  require_seg_trans: bool, out_hw: Tuple[int, int],
+                  policy: precision.Policy,
+                  cls_idx: Optional[torch.Tensor] = None,
+                  cls_active: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pseudo-label chain at training-crop shapes.  The attention
+    fusion is gated by the learned affinity once ``require_seg_trans``
+    holds (past the seg-trans iteration), plain before.  Without
+    ``cls_idx`` every foreground class is a bucket entry.
+    Returns (cam_labels (B, H, W), cams_refined (B, MC, P))."""
+    b = batch.img.shape[0]
+    h, w = out_hw
+    g0, g1 = h // cfg.clip.patch_size, w // cfg.clip.patch_size
+    if cls_idx is None:
+        num_fg = cfg.dataset.num_classes - 1
+        cls_idx = torch.arange(num_fg, device=batch.img.device).expand(b, num_fg)
+        cls_active = batch.present_mask.bool()
+    valid_p = batch.valid[:, 1:].float()
+    seg_attn = attn_pred.detach()
+
+    def fuse(attn_last):
+        if bool(require_seg_trans):
+            return aff.fuse_attention_gated(feats.layer_attn, attn_last, seg_attn,
+                                            cfg.cam.seg_trans_layers, valid_p)
+        return aff.fuse_attention_plain(feats.layer_attn, attn_last,
+                                        cfg.cam.attn_fuse_layers,
+                                        num_patches=batch.valid.shape[1] - 1)
+
+    return pseudo_label_chain(
+        frozen, feats, batch.valid, batch.present_mask, batch.gh, batch.gw,
+        (g0, g1), cfg, policy, cls_idx, cls_active, fuse,
+        lambda grid: resize_bilinear(grid, h, w), batch.img)
+
+
+def forward_train(params: Dict[str, Any], frozen: Dict[str, Any], batch: Batch,
+                  cfg: Config, require_seg_trans: bool,
+                  gen: Optional[torch.Generator] = None,
+                  policy: precision.Policy = precision.DEFAULT,
+                  cls_idx: Optional[torch.Tensor] = None,
+                  cls_active: Optional[torch.Tensor] = None) -> ForwardOutputs:
+    """Training forward on fixed square crops (valid all true): heads with
+    gradient, pseudo labels without."""
+    feats, head_out, attn_pred, _ = backbone_and_heads(
+        params, frozen, batch, cfg, policy, gen=gen)
+    cam_labels, refined = pseudo_labels(frozen, feats, attn_pred, batch, cfg,
+                                        require_seg_trans, tuple(batch.img.shape[-2:]),
+                                        policy, cls_idx=cls_idx, cls_active=cls_active)
+    return ForwardOutputs(head_out.seg, cam_labels, attn_pred, refined)
+
+
 def tree_to(tree, device) -> Any:
     """A nested dict of tensors moved to ``device``."""
     return vit.tree_map(lambda t: t.to(device), tree)
@@ -125,12 +201,17 @@ def tree_to(tree, device) -> Any:
 
 def init_trainable_params(gen: torch.Generator, cfg: Config,
                           device="cpu") -> Dict[str, Any]:
-    """Fuse + decoder heads (the trainable part)."""
-    head = heads.init_head_params(
+    """Fuse + decoder heads, and the CoMer branch where the config enables
+    it (the trainable part; CLIP stays frozen)."""
+    params = {"head": heads.init_head_params(
         gen, n_layers=cfg.clip.vision_layers - 1, in_dim=cfg.clip.vision_width,
         embed=cfg.clip.embedding_dim, dec_layers=3,
-        num_classes=cfg.dataset.num_classes)
-    return {"head": tree_to(head, device)}
+        num_classes=cfg.dataset.num_classes)}
+    if cfg.comer.enabled:
+        params["comer"] = init_comer_params(gen, cfg.comer,
+                                            vit_width=cfg.clip.vision_width,
+                                            embed=cfg.clip.embedding_dim)
+    return tree_to(params, device)
 
 
 def build_frozen_state(visual: Dict[str, Any], logit_scale, fg_text, bg_text,

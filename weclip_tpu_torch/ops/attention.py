@@ -3,7 +3,8 @@ map (port of weclip_tpu/ops/attention.py).
 
 ``mha_with_weights`` is the plain formulation (the JAX package's XLA path).
 ``mha_auto`` sends CUDA tensors to the hand-written kernels
-(ops/attention_kernels.py) and everything else to the plain formulation.
+(ops/attention_kernels.py) and everything else, or a caller that asks for
+gradients (``allow_kernel=False``), to the plain formulation.
 Layout is batch-first (B, L, D); matmuls take the policy's compute dtype
 with fp32 accumulation; the softmax is fp32."""
 
@@ -92,12 +93,15 @@ def mha_auto(
     valid: Optional[torch.Tensor] = None,
     policy: precision.Policy = precision.DEFAULT,
     want_weights: bool = True,
+    allow_kernel: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """CUDA tensors go to the forward kernels (K1 with the map, K2
-    without); CPU tensors to ``mha_with_weights``.
-    The kernels have no gradient here: differentiable callers use
+    without); CPU tensors, and every call with ``allow_kernel=False``, to
+    ``mha_with_weights``.  The forward kernels have no gradient: a
+    differentiable caller passes ``allow_kernel=False`` (the JAX package's
+    ``allow_pallas=False``) or uses
     ``attention_kernels.mha_with_weights_fused``."""
-    if x.is_cuda:
+    if x.is_cuda and allow_kernel:
         from weclip_tpu_torch.ops.attention_kernels import mha_with_weights_kernel
         return mha_with_weights_kernel(x, p, n_heads, valid=valid,
                                        policy=policy, want_weights=want_weights)

@@ -1,17 +1,21 @@
-"""Attention kernels K1-K3 (port of weclip_tpu/ops/pallas_attention.py).
+"""Attention kernels K1-K3 and K6 (port of weclip_tpu/ops/pallas_attention.py).
 
 Each wrapper sits beside its plain PyTorch version:
 
 - ``attention_core`` (K1 with the head-mean map, K2 without) /
   ``attention_core_plain``;
-- ``attention_bwd`` (K3) / ``attention_bwd_plain``;
+- ``attention_bwd`` (K3, and K3-rect for Lq != Lk) / ``attention_bwd_plain``;
+- ``cross_attention_core`` (K6, rectangular, no map) /
+  ``cross_attention_core_plain``;
 - ``AttentionCoreFn``, the ``torch.autograd.Function`` whose forward is K1
-  and whose backward is K3 (the JAX ``custom_vjp`` attention_core_diff).
+  and whose backward is K3 (the JAX ``custom_vjp`` attention_core_diff), and
+  ``CrossAttentionCoreFn``, forward K6 and backward K3-rect (the CoMer
+  ``custom_vjp`` _cross_core_fused).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel (csrc/attention.cu) or raises.  The TPU stream padding
-(``stream_pad_len``/``pad_stream``) is not ported: the kernels run at the
-true sequence length.
+launches its kernel (csrc/attention.cu, csrc/cross_attention.cu) or raises.
+The TPU stream padding (``stream_pad_len``/``pad_stream``, and CoMer's
+128-multiples) is not ported: the kernels run at the true sequence lengths.
 """
 
 from __future__ import annotations
@@ -148,17 +152,21 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   score_dtype: torch.dtype,
                   stats: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K3 on CUDA; the plain version on CPU.  Square (Lq == Lk) only: the
-    rectangular case serves CoMer, which is not ported yet.  ``stats``, a
-    (B, H, L, 3) fp32 CUDA buffer, receives each query row's (max score,
-    1/sum, delta) from the kernel's first pass."""
+    """On CUDA, K3 for Lq == Lk (csrc/attention.cu) and K3-rect for Lq != Lk
+    (csrc/cross_attention.cu); the plain version on CPU.  q, do (B, H, Lq,
+    Dh); k, v (B, H, Lk, Dh); kmask (B, Lk).  ``stats``, a (B, H, Lq, 3) fp32
+    CUDA buffer, receives each query row's (max score, 1/sum, delta) from
+    the kernel's first pass."""
     if not q.is_cuda:
         return attention_bwd_plain(q, k, v, do, kmask, score_dtype)
-    b, h, l, dh = q.shape
-    if k.shape != q.shape or v.shape != q.shape or do.shape != q.shape:
-        raise ValueError("attention_bwd: q, k, v, do must share one shape")
-    if tuple(kmask.shape) != (b, l):
-        raise ValueError(f"attention_bwd: kmask {tuple(kmask.shape)} != {(b, l)}")
+    b, h, lq, dh = q.shape
+    lk = k.shape[2]
+    if (do.shape != q.shape or v.shape != k.shape
+            or tuple(k.shape) != (b, h, lk, dh)):
+        raise ValueError("attention_bwd: expected q, do (B, H, Lq, Dh) and "
+                         "k, v (B, H, Lk, Dh)")
+    if tuple(kmask.shape) != (b, lk):
+        raise ValueError(f"attention_bwd: kmask {tuple(kmask.shape)} != {(b, lk)}")
     if dh not in (32, 64):
         raise ValueError(f"attention_bwd: head dim {dh} not in (32, 64)")
     if score_dtype not in (torch.float32, torch.bfloat16):
@@ -166,22 +174,77 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf, kf, vf, dof = (t.float().contiguous() for t in (q, k, v, do))
     _check_cuda("attention_bwd", kmask, qf, kf, vf, dof)
     bias = _key_bias(kmask).contiguous()
-    dq, dk, dv = (torch.empty_like(qf) for _ in range(3))
+    dq = torch.empty_like(qf)
+    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
     if stats is None:
-        stats = torch.empty((b, h, l, 3), device=q.device, dtype=torch.float32)
-    elif (tuple(stats.shape) != (b, h, l, 3) or stats.dtype != torch.float32
+        stats = torch.empty((b, h, lq, 3), device=q.device, dtype=torch.float32)
+    elif (tuple(stats.shape) != (b, h, lq, 3) or stats.dtype != torch.float32
           or stats.device != q.device or not stats.is_contiguous()):
-        raise ValueError("attention_bwd: stats must be a contiguous (B, H, L, 3) "
+        raise ValueError("attention_bwd: stats must be a contiguous (B, H, Lq, 3) "
                          "fp32 tensor on q's device")
+    bf16 = int(score_dtype == torch.bfloat16)
+    ptrs = (qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(),
+            bias.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        kernels.call("attention", "attn_bwd", qf.data_ptr(), kf.data_ptr(),
-                     vf.data_ptr(), dof.data_ptr(), bias.data_ptr(),
-                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                     stats.data_ptr(), b, h, l, dh,
-                     int(score_dtype == torch.bfloat16), stream)
-    kernels.launches["attention_bwd"] += 1
+        if lq == lk:
+            kernels.call("attention", "attn_bwd", *ptrs, b, h, lq, dh, bf16, stream)
+        else:
+            kernels.call("cross_attention", "xattn_bwd", *ptrs, b, h, lq, lk, dh,
+                         bf16, stream)
+    kernels.launches["attention_bwd" if lq == lk else "attention_bwd_rect"] += 1
     return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# K6: rectangular forward (the CoMer CTI cross-attention)
+# ---------------------------------------------------------------------------
+
+def cross_attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               kmask: torch.Tensor) -> torch.Tensor:
+    """q (B, H, Lq, Dh) pre-scaled, in the score dtype (bf16 or fp32); k, v
+    (B, H, Lk, Dh); kmask (B, Lk) {0,1}.  Returns fp32 (B, H, Lq, Dh): the
+    arithmetic of the Pallas no-export ``_attn_kernel`` at scale 1
+    (normalized after the value product)."""
+    sd = q.dtype
+    scores = torch.matmul(q.float(), k.to(sd).float().transpose(-1, -2))
+    scores = scores + _key_bias(kmask)[:, None, None, :]
+    smax = scores.amax(dim=-1, keepdim=True).clamp_min(-5e29)
+    ex = torch.exp(scores - smax)
+    recip = 1.0 / ex.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return torch.matmul(ex.to(sd).float(), v.to(sd).float()) * recip
+
+
+def cross_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kmask: torch.Tensor) -> torch.Tensor:
+    """K6 on CUDA; the plain version on CPU.  q, k, v share the score dtype
+    (bf16: tensor-core products; fp32: FMA loops)."""
+    if not q.is_cuda:
+        return cross_attention_core_plain(q, k, v, kmask)
+    _check_cuda("cross_attention_core", kmask, q, k, v)
+    b, h, lq, dh = q.shape
+    lk = k.shape[2]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"cross_attention_core: unsupported dtype {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("cross_attention_core: q, k, v must share one dtype")
+    if tuple(k.shape) != (b, h, lk, dh) or v.shape != k.shape:
+        raise ValueError("cross_attention_core: expected q (B, H, Lq, Dh) and "
+                         "k, v (B, H, Lk, Dh)")
+    if tuple(kmask.shape) != (b, lk):
+        raise ValueError(f"cross_attention_core: kmask {tuple(kmask.shape)} != {(b, lk)}")
+    if dh not in (32, 64):
+        raise ValueError(f"cross_attention_core: head dim {dh} not in (32, 64)")
+    bias = _key_bias(kmask).contiguous()
+    out = torch.empty(q.shape, device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.call("cross_attention", "xattn_fwd", q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, lq, lk,
+                     dh, int(q.dtype == torch.bfloat16), stream)
+    kernels.launches["cross_attention"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +272,24 @@ class AttentionCoreFn(torch.autograd.Function):
         dq, dk, dv = attention_bwd(q.float() * scale, k, v, g_out.float(),
                                    kmask, score_dtype=q.dtype)
         return (dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+class CrossAttentionCoreFn(torch.autograd.Function):
+    """Differentiable rectangular attention core: K6 forward, K3-rect
+    backward.  q (B, H, Lq, Dh) pre-scaled, k, v (B, H, Lk, Dh), all in the
+    score dtype; kmask (B, Lk).  Returns fp32; the cotangents come back in
+    the primal dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kmask):
+        ctx.save_for_backward(q, k, v, kmask)
+        return cross_attention_core(q.detach(), k.detach(), v.detach(), kmask)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        q, k, v, kmask = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, g_out, kmask, score_dtype=q.dtype)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
 
 
 def _heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
