@@ -59,13 +59,32 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
+def spin_cycles_per_ms() -> float:
+    """SM cycles per ms at the card's top SM clock (``nvidia-smi``): a spin
+    of n ms in these cycles lasts at least n ms at any clock the card runs."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e3
+
+
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up."""
+    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up.
+
+    The card first spins for longer than the host takes to queue the
+    ``reps`` calls, and the CUDA events around them then time the calls back
+    to back: a call whose kernels take less time than the host needs to
+    launch them is timed by its device work, not by the host."""
     import torch
+    t0 = time.perf_counter()
     fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    spin_ms = min(2.0 * reps * host_ms + 5.0, 2000.0)
+    torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
     start.record()
     for _ in range(reps):
         fn()
@@ -251,12 +270,57 @@ def output_check(what, out, ref):
 K3_F64_RATIO = (8.0, 2.5)
 
 
+# K2's path shapes: (B, H, L, Dh, canvas, class token).  bf16: the frozen
+# blocks on the flipped half (8 rows) and segment-only scale 1 (16 rows) at
+# L 1025, scale 2 at 626; fp32: the eval decoder at 1024 and 625.
+K2_SHAPES = [(8, 12, 1025, 64, 512, True), (16, 12, 1025, 64, 512, True),
+             (16, 12, 626, 64, 384 + 16, True), (16, 8, 1024, 32, 512, False),
+             (16, 8, 625, 32, 384 + 16, False)]
+# K3's: the GradCAM pullback of pseudo_label_batch(8) (B*MC = 32 rows,
+# bucket 4, canvas 512) and of the training step (4 crops of 320, bucket 4)
+K3_SHAPES = [("gradcam", 32, 1025, 512), ("train", 16, 401, None)]
+
+
+def k2_times(q, k, v, km, reps: int):
+    """K2 and SDPA with the same boolean key mask on the same inputs: (ms,
+    library ms)."""
+    import torch.nn.functional as F
+    from weclip_tpu_torch.ops import attention_kernels as ak
+    mask = km.bool()[:, None, None, :]
+    return (cuda_ms(lambda: ak.attention_core(q, k, v, km, False), reps),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                    reps))
+
+
+def sdpa_bwd_ms(qs, k, v, do, km, reps: int) -> float:
+    """PyTorch's memory-efficient attention backward on the same pre-scaled
+    inputs in bf16, its forward outside the timed region."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    bf = torch.bfloat16
+    ql, kl, vl = (t.to(bf).detach().requires_grad_(True) for t in (qs, k, v))
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        out = F.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=km.bool()[:, None, None, :], scale=1.0)
+    do_l = do.to(bf)
+    return cuda_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do_l,
+                                               retain_graph=True), reps)
+
+
+def k3_inputs(b, l, canvas, gen, h: int = 12, dh: int = 64):
+    """bf16 q, k, v (q unscaled), fp32 dO and the key mask of a K3 shape."""
+    import torch
+    q, k, v = qkv(b, h, l, dh, gen, torch.bfloat16)
+    km = token_mask(b, canvas) if canvas else torch.ones((b, l), device="cuda")
+    do = torch.randn((b, h, l, dh), generator=gen, device="cuda")
+    return q, k, v, do, km
+
+
 def check_kernels(reps: int = 10):
     """Phase 3: every kernel against its plain version; returns the
     kernels' records (without launches)."""
     import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from weclip_tpu_torch.core import precision
     from weclip_tpu_torch.core.config import ParConfig
@@ -276,6 +340,7 @@ def check_kernels(reps: int = 10):
         return n + (b * l * l * 4 if export else 0)
 
     src_attn = "weclip_tpu_torch/csrc/attention.cu"
+    src_flash = "weclip_tpu_torch/csrc/flash_attention.cu"
 
     # K1: the frozen blocks' map export, first 8 rows at L=1025 (scale 1)
     b, h, l, dh = 8, 12, 1025, 64
@@ -298,12 +363,10 @@ def check_kernels(reps: int = 10):
            None, [[b, h, l, dh]])
     del out, amap, ref_out, ref_map
 
-    # K2: flip half at scale 1, scale 2 (16 rows, L=626), eval decoder
-    # (16 rows, 8 heads, Dh=32, L=1024 and 625, fp32)
-    shapes = [(8, 12, 1025, 64, 512, True), (16, 12, 626, 64, 384 + 16, True),
-              (16, 8, 1024, 32, 512, False), (16, 8, 625, 32, 384 + 16, False)]
-    checks, first = [], None
-    for (b, h, l, dh, canvas, cls) in shapes:
+    # K2 at its five path shapes, each timed beside SDPA with the same
+    # boolean key mask; then once past K1's whole-row limit, untimed
+    checks, ms_by_shape, sdpa_by_shape, first = [], {}, {}, None
+    for (b, h, l, dh, canvas, cls) in K2_SHAPES:
         dtype = bf if dh == 64 else torch.float32
         q, k, v = qkv(b, h, l, dh, gen, dtype)
         km = token_mask(b, canvas)
@@ -312,30 +375,40 @@ def check_kernels(reps: int = 10):
         out, _ = ak.attention_core(q, k, v, km, export_weights=False)
         ref, _ = ak.attention_core_plain(q, k, v, km, export_weights=False)
         torch.cuda.synchronize()
-        checks.append(output_check(f"out {[b, h, l, dh]} {str(dtype)[6:]}", out, ref))
+        what = f"{[b, h, l, dh]} {str(dtype)[6:]}"
+        checks.append(output_check(f"out {what}", out, ref))
+        ms_by_shape[what], sdpa_by_shape[what] = k2_times(q, k, v, km, reps)
         if first is None:
             first = (q, k, v, km)
+        del out, ref
+    q, k, v = qkv(2, 12, 4096, 64, gen, bf)
+    km = torch.ones((2, 4096), device="cuda")
+    km[1, 1500:] = 0.0
+    out, _ = ak.attention_core(q, k, v, km, export_weights=False)
+    ref, _ = ak.attention_core_plain(q, k, v, km, export_weights=False)
+    torch.cuda.synchronize()
+    checks.append(output_check("out [2, 12, 4096, 64] bf16 (past K1's length limit)",
+                               out, ref))
+    del out, ref, q, k, v
     q, k, v, km = first
     b, h, l, dh = q.shape
-    sdpa_mask = km.bool()[:, None, None, :]
-    record("attention_fwd", src_attn,
+    what = f"{[b, h, l, dh]} {str(q.dtype)[6:]}"
+    record("attention_fwd", src_flash,
            "weclip_tpu/ops/pallas_attention.py:195 (attention_core_pallas, "
            "export_weights=False; pallas_call :260)",
-           checks,
-           cuda_ms(lambda: ak.attention_core(q, k, v, km, False), reps),
+           checks, ms_by_shape[what],
            cuda_ms(lambda: ak.attention_core_plain(q, k, v, km, False), reps),
            bound_ms(attn_fwd_bytes(b, h, l, dh, False), 4 * b * h * l * l * dh,
                     "bf16"),
-           cuda_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, attn_mask=sdpa_mask), reps),
-           [list(s[:4]) for s in shapes])
+           sdpa_by_shape[what], [list(s[:4]) for s in K2_SHAPES] + [[2, 12, 4096, 64]],
+           timed_shape=what, ms_by_shape=ms_by_shape, library_ms_by_shape=sdpa_by_shape,
+           fp32_source="weclip_tpu_torch/csrc/cross_attention.cu")
     del first, q, k, v
 
     # K3: the GradCAM pullback, B*MC = 32 rows at L=1025 (bucket 4)
-    b, h, l, dh = 32, 12, 1025, 64
-    q, k, v = qkv(b, h, l, dh, gen, bf)
-    km = token_mask(b, 512)
-    do = torch.randn((b, h, l, dh), generator=gen, device="cuda")
+    _, b, l, canvas = K3_SHAPES[0]
+    q, k, v, do, km = k3_inputs(b, l, canvas, gen)
+    h, dh = q.shape[1], q.shape[3]
     scale = dh ** -0.5
     qs = q.float() * scale
     got = ak.attention_bwd(qs, k, v, do, km, bf)
@@ -423,30 +496,48 @@ def check_kernels(reps: int = 10):
     if rel > 1e-4:
         failed.append(f"AttentionCoreFn fp32 gradient off by {rel}")
     del g_fn, g_pl, out, out_p, q32, k32, v32
-    # library yardstick: PyTorch's memory-efficient attention backward on
-    # the same (pre-scaled) inputs in bf16, forward outside the timed region
-    ql, kl, vl = (t.to(bf).detach().requires_grad_(True) for t in (qs, k, v))
-    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-        out_l = F.scaled_dot_product_attention(
-            ql, kl, vl, attn_mask=km.bool()[:, None, None, :], scale=1.0)
-    do_l = do.to(bf)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(out_l, (ql, kl, vl), do_l,
-                                                 retain_graph=True), reps)
-    del out_l, ql, kl, vl, do_l
+    # the training step's pullback: checked like the GradCAM one
+    k3["ms_by_shape"], k3["library_ms_by_shape"] = {}, {}
+    for i, (what, b_, l_, canvas) in enumerate(K3_SHAPES):
+        if i:
+            q, k, v, do, km = k3_inputs(b_, l_, canvas, gen)
+            qs = q.float() * scale
+            got = ak.attention_bwd(qs, k, v, do, km, bf)
+            ref = ak.attention_bwd_plain(qs, k, v, do, km, bf)
+            torch.cuda.synchronize()
+            for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+                sc = float(r.abs().max())
+                checks.append((f"{what} {name} (largest |{name}| {sc:.3e})",
+                               max_err(a, r), 2.0 ** -8 * sc))
+                mean = float((a - r).abs().mean())
+                k3["mean_abs_err"][f"{what} {name}"] = mean
+                if mean > 1e-5 * sc:
+                    failed.append(f"{what} {name} mean error {mean}")
+            del got, ref
+        # as AttentionCoreFn calls it: bf16 q unscaled with its scale, bf16 dO
+        do_b = do.to(bf)
+        k3["ms_by_shape"][what] = cuda_ms(
+            lambda: ak.attention_bwd(q, k, v, do_b, km, bf, q_scale=scale), reps)
+        k3["library_ms_by_shape"][what] = sdpa_bwd_ms(qs, k, v, do, km, reps)
+        print(f"[kernel] attention_bwd {what} {[b_, h, l_, dh]}: "
+              f"{k3['ms_by_shape'][what]:.4f} ms, SDPA memory-efficient backward "
+              f"{k3['library_ms_by_shape'][what]:.4f} ms", flush=True)
+        if i == 0:
+            plain_ms = cuda_ms(lambda: ak.attention_bwd_plain(qs, k, v, do, km, bf), reps)
     # as AttentionCoreFn hands them over: q, k, v, dO bf16 in; dq, dk, dv
     # fp32 out; the key mask
+    what, b, l, _ = K3_SHAPES[0]
     bwd_bytes = b * h * l * dh * (4 * 2 + 3 * 4) + b * l * 4
-    record("attention_bwd", src_attn,
+    record("attention_bwd", src_flash,
            "weclip_tpu/ops/pallas_attention.py:395 (attention_bwd_pallas; "
            "pallas_call :441)",
-           checks,
-           cuda_ms(lambda: ak.attention_bwd(qs, k, v, do, km, bf), reps),
-           cuda_ms(lambda: ak.attention_bwd_plain(qs, k, v, do, km, bf), reps),
+           checks, k3["ms_by_shape"][what], plain_ms,
            bound_ms(bwd_bytes, 10 * b * h * l * l * dh, "bf16"),
-           lib_ms, [[b, h, l, dh]], **k3)
+           k3["library_ms_by_shape"][what],
+           [[s_[1], h, s_[2], dh] for s_ in K3_SHAPES], timed_shape=what, **k3)
     if failed:
         raise AssertionError(f"attention_bwd: {failed}")
-    del got, ref, q, k, v, do, qs
+    del q, k, v, do, do_b, qs
     torch.cuda.empty_cache()
 
     # K4 / K5: PAR at the eval canvas, 8 images, bucket 4 (5 channels)
@@ -513,7 +604,6 @@ def check_cti_kernels(records, reps: int = 10):
     autograd.Function that pairs them; appends their records."""
     import torch
     import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from weclip_tpu_torch.core import precision
     from weclip_tpu_torch.ops import attention_kernels as ak
@@ -576,7 +666,7 @@ def check_cti_kernels(records, reps: int = 10):
     # K3-rect: the CTI backward of training, bf16 (held like K3: max to one
     # bf16 ulp, mean to 1e-5 of each gradient's largest magnitude) and fp32
     # (2e-5 of it)
-    checks, failed, ms_by_shape, means = [], [], {}, {}
+    checks, failed, ms_by_shape, lib_by_shape, means = [], [], {}, {}, {}
     for what, b, lq, lk, km in shapes[:2]:
         for dtype in (bf, torch.float32):
             q, k, v = qkv_rect(b, lq, lk, dtype)
@@ -597,20 +687,13 @@ def check_cti_kernels(records, reps: int = 10):
             if dtype == bf:
                 ms_by_shape[what] = cuda_ms(
                     lambda: ak.attention_bwd(q, k, v, do, km, bf), reps)
+                lib_by_shape[what] = sdpa_bwd_ms(q, k, v, do, km, reps)
             del got, ref
     what, b, lq, lk, km = shapes[0]
     q, k, v = qkv_rect(b, lq, lk, bf)
     do = torch.randn((b, h, lq, dh), generator=gen, device="cuda")
     qf = q.float()
     plain_ms = cuda_ms(lambda: ak.attention_bwd_plain(q, k, v, do, km, bf), reps)
-    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
-    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-        out_l = F.scaled_dot_product_attention(
-            ql, kl, vl, attn_mask=km.bool()[:, None, None, :], scale=1.0)
-    do_l = do.to(bf)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(out_l, (ql, kl, vl), do_l,
-                                                 retain_graph=True), reps)
-    del out_l, ql, kl, vl
     # the autograd.Function: under bf16 exactly K6's output and K3-rect's
     # gradients in the primal dtype; under fp32 autograd of the plain forward
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -637,13 +720,14 @@ def check_cti_kernels(records, reps: int = 10):
     # dq, dk, dv fp32 out; the key mask
     bwd_bytes = b * h * (lq * dh * 2 + 2 * lk * dh * 2 + lq * dh * 4
                          + lq * dh * 4 + 2 * lk * dh * 4) + b * lk * 4
-    record("attention_bwd_rect", src,
+    record("attention_bwd_rect", "weclip_tpu_torch/csrc/flash_attention.cu",
            "weclip_tpu/ops/pallas_attention.py:395 (attention_bwd_pallas with "
            "Lq != Lk; pallas_call :441)",
            checks, ms_by_shape[what], plain_ms,
-           bound_ms(bwd_bytes, 10 * b * h * lq * lk * dh, "bf16"), lib_ms,
+           bound_ms(bwd_bytes, 10 * b * h * lq * lk * dh, "bf16"), lib_by_shape[what],
            [[s[1], h, s[2], dh, s[3]] for s in shapes[:2]],
-           timed_shape=what, ms_by_shape=ms_by_shape, mean_abs_err=means,
+           timed_shape=what, ms_by_shape=ms_by_shape, library_ms_by_shape=lib_by_shape,
+           mean_abs_err=means,
            autograd_fn_bf16_exact=same, autograd_fn_fp32_rel_err=rel)
     if failed:
         raise AssertionError(f"attention_bwd_rect: {failed}")

@@ -189,3 +189,31 @@ def test_kernel_mha_matches_plain_mha_on_cpu():
                                atol=F32_TOL)
     np.testing.assert_allclose(attn.numpy(), ref_attn.numpy(), rtol=F32_TOL,
                                atol=F32_TOL)
+
+
+@pytest.mark.parametrize("score_dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_takes_unscaled_q_with_its_scale(score_dtype):
+    """attention_bwd(q, ..., q_scale=s) is attention_bwd(q * s, ...): the
+    form in which AttentionCoreFn hands the kernel its unscaled query."""
+    b, h, l, dh = 2, 2, 20, 32
+    q, k, v, kmask = _qkv_mask(12, b, h, l, dh, n_valid=(20, 7))
+    do = np.random.default_rng(13).standard_normal((b, h, l, dh)).astype(np.float32)
+    q, k, v, do, km = map(torch.from_numpy, (q, k, v, do, kmask))
+    s = dh ** -0.5
+    got = tak.attention_bwd(q.to(score_dtype), k.to(score_dtype), v.to(score_dtype),
+                            do.to(score_dtype), km, score_dtype, q_scale=s)
+    want = tak.attention_bwd(q.to(score_dtype).float() * s, k, v, do.to(score_dtype),
+                             km, score_dtype)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+def test_padded_key_bias_masks_the_padding():
+    """The key-tiled kernels stage the bias in whole 64-key tiles: the
+    padding is -1e30, like a masked key."""
+    km = torch.tensor([[1.0] * 70, [1.0] * 30 + [0.0] * 40])
+    bias = tak._padded_key_bias(km)
+    assert bias.shape == (2, 128) and bias.dtype == torch.float32
+    assert torch.equal(bias[:, :70], tak._key_bias(km))
+    assert bool((bias[:, 70:] == -1e30).all())
+    assert tak._padded_key_bias(torch.ones((1, 64))).shape == (1, 64)

@@ -149,3 +149,24 @@ def test_launch_counters_reset():
                                      "attention_bwd_rect", "par_affinity",
                                      "par_propagate"}
     assert not any(kernels.launches.values())
+
+
+def test_every_kernel_source_has_its_signatures():
+    """kernels.build() compiles one library per SIGNATURES entry: every
+    csrc/*.cu is one, and every C entry point it lists is defined there
+    with the argument types that ctypes passes."""
+    csrc = os.path.join(REPO, "weclip_tpu_torch", "csrc")
+    sources = {f[:-3] for f in os.listdir(csrc) if f.endswith(".cu")}
+    assert sources == set(kernels.SIGNATURES)
+    for name, fns in kernels.SIGNATURES.items():
+        with open(os.path.join(csrc, f"{name}.cu")) as f:
+            text = f.read()
+        for fn, argtypes in fns.items():
+            head = f'extern "C" int {fn}('
+            assert head in text, (name, fn)
+            params = text.split(head, 1)[1].split(")", 1)[0].split(",")
+            assert len(params) == len(argtypes), (name, fn)
+            for param, argtype in zip(params, argtypes):
+                kind = {"void*": kernels._P, "int": kernels._I, "float": kernels._F}
+                ctype = param.split()[-2] if "*" not in param else "void*"
+                assert kind[ctype] is argtype, (name, fn, param)

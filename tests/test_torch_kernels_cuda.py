@@ -36,8 +36,11 @@ def _qkv(card, b, h, l, dh, dtype, n_valid):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("export", [True, False])
-def test_attention_fwd_kernel_matches_plain(card, dtype, tol, dh, export):
-    q, k, v, km = _qkv(card, 3, 2, 77, dh, dtype, (77, 40, 0))
+@pytest.mark.parametrize("l", [77, 626, 1025])
+def test_attention_fwd_kernel_matches_plain(card, dtype, tol, dh, export, l):
+    """K1 / K2 with all keys, half the keys and no key valid (a fully
+    masked image)."""
+    q, k, v, km = _qkv(card, 3, 2, l, dh, dtype, (l, l // 2, 0))
     before = dict(kernels.launches)
     out, amap = ak.attention_core(q, k, v, km, export_weights=export)
     ref, ref_map = ak.attention_core_plain(q, k, v, km, export_weights=export)
@@ -48,15 +51,44 @@ def test_attention_fwd_kernel_matches_plain(card, dtype, tol, dh, export):
         torch.testing.assert_close(amap, ref_map, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_attention_fwd_no_map_takes_long_sequences(card, dtype, tol):
+    """K2 keeps no whole score row, so L is not bounded by shared memory."""
+    q, k, v, km = _qkv(card, 2, 2, 4096, 64, dtype, (4096, 1500))
+    out, _ = ak.attention_core(q, k, v, km, export_weights=False)
+    ref, _ = ak.attention_core_plain(q, k, v, km, export_weights=False)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4), (torch.bfloat16, 2e-2)])
-def test_attention_bwd_kernel_matches_plain(card, dtype, tol):
-    q, k, v, km = _qkv(card, 2, 2, 70, 64, dtype, (70, 33))
+@pytest.mark.parametrize("l", [70, 77, 626, 1025])
+def test_attention_bwd_kernel_matches_plain(card, dtype, tol, l):
+    q, k, v, km = _qkv(card, 3, 2, l, 64, dtype, (l, l // 2, 0))
     do = torch.randn(q.shape, device=card)
     qs = q.float() * 64 ** -0.5
+    before = kernels.launches["attention_bwd"]
     got = ak.attention_bwd(qs, k, v, do, km, dtype)
     ref = ak.attention_bwd_plain(qs, k, v, do, km, dtype)
+    assert kernels.launches["attention_bwd"] == before + 1
     for a, r in zip(got, ref):
         torch.testing.assert_close(a, r, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("l", [77, 1025])
+def test_attention_bwd_kernel_takes_bf16_as_autograd_hands_it(card, l):
+    """K3 fed what AttentionCoreFn gives it (bf16 q unscaled with its scale,
+    bf16 k, v and dO) equals K3 fed the pre-scaled fp32 q: the kernel
+    rounds bf16(float(q) * scale) as it stages q."""
+    q, k, v, km = _qkv(card, 3, 2, l, 64, torch.bfloat16, (l, l // 2, 0))
+    do = torch.randn(q.shape, device=card).to(torch.bfloat16)
+    scale = 64 ** -0.5
+    got = ak.attention_bwd(q, k, v, do, km, torch.bfloat16, q_scale=scale)
+    want = ak.attention_bwd(q.float() * scale, k, v, do.float(), km, torch.bfloat16)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    ref = ak.attention_bwd_plain(q.float() * scale, k, v, do, km, torch.bfloat16)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=0, atol=2.0 ** -8 * float(r.abs().max()))
 
 
 def _rect(card, lq, lk, dtype):

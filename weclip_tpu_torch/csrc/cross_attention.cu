@@ -1,38 +1,45 @@
 // Rectangular attention (Lq != Lk) for the CoMer CTI cross-attention, and
-// its backward, for sm_90a.  Plain C entry points, loaded with ctypes by
-// weclip_tpu_torch/kernels.py; wrappers in ops/attention_kernels.py.
+// the fp32 attention kernels, for sm_90a.  Plain C entry points, loaded
+// with ctypes by weclip_tpu_torch/kernels.py; wrappers in
+// ops/attention_kernels.py.  The bf16 K2 and backward are
+// flash_attention.cu's.
 //
 // Replaces (weclip_tpu/ops/pallas_attention.py):
-//   K6       cross_attention_core_pallas           (_attn_kernel, no export)
-//   K3-rect  attention_bwd_pallas with Lq != Lk    (_attn_bwd_kernel)
+//   K6             cross_attention_core_pallas   (_attn_kernel, no export; :539, pallas_call :582)
+//   K2             attention_core_pallas(export_weights=False) under the fp32
+//                  score type (the eval decoder; :195, pallas_call :260)
+//   K3, K3-rect    attention_bwd_pallas under the fp32 score type (_attn_bwd_kernel; :395)
 //
 // Numerics follow the Pallas kernels: q arrives pre-scaled, fp32 scores and
 // softmax, additive -1e30 key bias, all-masked row guard max(smax, -5e29),
-// denominator >= 1e-30; K6 normalizes after the value product and returns
-// fp32; the backward recomputes the softmax (the forward saves no row
-// statistics), takes delta = rowsum(P * dP) as the plain version does, and
-// returns fp32 dq, dk, dv.  Under the bf16 score type every product runs on
-// the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate) with its
-// operands (q, k, v, dO, P, dS) rounded to bf16; under fp32 the products
-// are FMA loops on the CUDA cores, one query row (or key) per thread.
+// denominator >= 1e-30; the forward normalizes after the value product and
+// returns fp32; the backward recomputes the softmax (the forward saves no
+// row statistics), takes delta = rowsum(P * dP) as the plain version does,
+// and returns fp32 dq, dk, dv.  K6 under the bf16 score type runs its
+// products on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+// accumulate) with q, k, v and P in bf16; under fp32 the products are FMA
+// loops on the CUDA cores, one query row (or key) per thread.
 //
-// Design: the whole-row score buffers of attention.cu do not fit here (one
-// 16-row fp32 score tile at Lk = 5376 is 345 KB, above a block's 227 KB),
-// so every kernel loops over key tiles staged in shared memory and keeps
-// scores in registers.  K6 makes two sweeps: the row max over all keys,
+// Design: whole-row score buffers do not fit here (one 16-row fp32 score
+// tile at Lk = 5376 is 345 KB, above a block's 227 KB), so every kernel
+// loops over key tiles staged in shared memory and keeps scores in
+// registers.  K6 under bf16 makes two sweeps: the row max over all keys,
 // then exp against that final max, the sum, and P V accumulated in
 // registers (each P fragment of S = q K^T is reused as the A operand of
-// P V).  The backward's dQ kernel makes four sweeps (max; sum; P, dP and
-// delta; dS and dQ = dS K) and writes each row's (max, 1/sum, delta); a
-// second kernel per key tile loops over all query rows to sum dK and dV
-// from those statistics.  Deterministic, no atomics.
+// P V).  The fp32 forward makes one sweep with online softmax, its
+// accumulator rescaled when a tile raises the row max.  The fp32
+// backward's dQ kernel makes four sweeps (max; sum; P, dP and delta; dS
+// and dQ = dS K) and writes each row's (max, 1/sum, delta); a second
+// kernel per key tile loops over all query rows to sum dK and dV from
+// those statistics.  Deterministic, no atomics.  The fp32 backward serves
+// the fp32 policy's parity checks only.
 //
 // What bounds them on the H100: at the eval shape (16, 4, 5376, 64) x 1024
 // keys K6 does 4*B*H*Lq*Lk*Dh = 90 GFLOP (0.09 ms at the bf16 peak) and
-// moves 30 MB (9 us): operations.  The backward at the training shapes
-// does 2.5x the forward's products on (4, 4, 2100, 64) x 400: operations
-// too.  These first kernels recompute S up to four times and run one warp
-// per 16 rows without pipelining; both are later work (wgmma, TMA).
+// moves 30 MB (9 us): operations.  K6 runs one warp per 16 rows without
+// pipelining its loads.  The fp32 forward at the decoder's (16, 8, 1024,
+// 32) does 17 GFLOP of FMA (0.26 ms at the fp32 peak), every operand read
+// from shared memory: operations, and shared-memory bandwidth beside them.
 
 #include <math_constants.h>
 
@@ -48,17 +55,8 @@ constexpr int kRows = 16 * kWarps;      // query rows (or keys) per tensor-core 
 constexpr int kKeys = 64;               // keys (or query rows) per staged tile there
 constexpr int kF32Rows = 64;            // query rows (or keys) per FMA block, one per thread
 constexpr int kF32Keys = 16;            // keys (or query rows) per staged tile there
+constexpr int kF32FwdKeys = 32;         // keys per staged tile of the FMA forward
 constexpr float kMasked = -1e30f;       // bias of a masked key, and of keys past Lk
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // rows [0, n) of a DH-wide bf16 array into shared memory (row stride
 // DH + 8), zeros in rows [n, nrows); 16-byte vectors
@@ -70,24 +68,6 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const __nv_bfloat
     const int j = i / kVec, c = (i % kVec) * 8;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (j < n) x = *reinterpret_cast<const uint4*>(src + (size_t)j * DH + c);
-    *reinterpret_cast<uint4*>(dst + j * (DH + 8) + c) = x;
-  }
-}
-
-// the same from a DH-wide fp32 array, rounded to bf16 as it is staged
-template <int DH>
-__device__ __forceinline__ void stage_f32_bf16(__nv_bfloat16* dst, const float* src,
-                                               int n, int nrows, int tid) {
-  constexpr int kVec = DH / 8;
-  for (int i = tid; i < nrows * kVec; i += kThreads) {
-    const int j = i / kVec, c = (i % kVec) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (j < n) {
-      const float4 lo = *reinterpret_cast<const float4*>(src + (size_t)j * DH + c);
-      const float4 hi = *reinterpret_cast<const float4*>(src + (size_t)j * DH + c + 4);
-      x = make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
-                     pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
-    }
     *reinterpret_cast<uint4*>(dst + j * (DH + 8) + c) = x;
   }
 }
@@ -243,8 +223,9 @@ xattn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 }
 
 // ---------------------------------------------------------------------------
-// K6, fp32: one thread per query row, K and V staged 16 keys at a time
-// (read by every thread at once: shared-memory broadcasts)
+// K6 and K2, fp32: one thread per query row, q in registers, K and V staged
+// 32 keys at a time (read by every thread at once: shared-memory
+// broadcasts); one sweep with online softmax
 // ---------------------------------------------------------------------------
 
 template <int DH>
@@ -253,8 +234,8 @@ xattn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ kbias,
                      float* __restrict__ out, int H, int Lq, int Lk) {
   __shared__ float q_s[kF32Rows][DH + 1];
-  __shared__ float k_s[kF32Keys][DH], v_s[kF32Keys][DH];
-  __shared__ float b_s[kF32Keys];
+  __shared__ float k_s[kF32FwdKeys][DH], v_s[kF32FwdKeys][DH];
+  __shared__ float b_s[kF32FwdKeys];
 
   const int bh = blockIdx.y, b = bh / H;
   const int q0 = blockIdx.x * kF32Rows, tid = threadIdx.x;
@@ -266,43 +247,43 @@ xattn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = i / DH;
     q_s[r][i % DH] = q0 + r < Lq ? q[((size_t)bh * Lq + q0) * DH + i] : 0.f;
   }
-  const float* qr = q_s[tid];
-
-  float m = -CUDART_INF_F;
-  for (int j0 = 0; j0 < Lk; j0 += kF32Keys) {
-    const int nk = min(kF32Keys, Lk - j0);
-    __syncthreads();
-    for (int i = tid; i < kF32Keys * DH; i += kF32Rows)
-      k_s[i / DH][i % DH] = i / DH < nk ? kb[(size_t)j0 * DH + i] : 0.f;
-    stage_bias<kF32Keys>(b_s, bias + j0, nk, tid, kF32Rows);
-    __syncthreads();
-    for (int j = 0; j < kF32Keys; ++j) {
-      float s = 0.f;
+  __syncthreads();
+  float qr[DH], acc[DH];
 #pragma unroll
-      for (int d = 0; d < DH; ++d) s = fmaf(qr[d], k_s[j][d], s);
-      m = fmaxf(m, s + b_s[j]);
-    }
+  for (int d = 0; d < DH; ++d) {
+    qr[d] = q_s[tid][d];
+    acc[d] = 0.f;
   }
-  m = fmaxf(m, -5e29f);
-
-  float l = 0.f, acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-  for (int j0 = 0; j0 < Lk; j0 += kF32Keys) {
-    const int nk = min(kF32Keys, Lk - j0);
+  // the running max starts at the all-masked row guard
+  float m = -5e29f, l = 0.f;
+  for (int j0 = 0; j0 < Lk; j0 += kF32FwdKeys) {
+    const int nk = min(kF32FwdKeys, Lk - j0);
     __syncthreads();
-    for (int i = tid; i < kF32Keys * DH; i += kF32Rows) {
+    for (int i = tid; i < kF32FwdKeys * DH; i += kF32Rows) {
       const bool in = i / DH < nk;
       k_s[i / DH][i % DH] = in ? kb[(size_t)j0 * DH + i] : 0.f;
       v_s[i / DH][i % DH] = in ? vb[(size_t)j0 * DH + i] : 0.f;
     }
-    stage_bias<kF32Keys>(b_s, bias + j0, nk, tid, kF32Rows);
+    stage_bias<kF32FwdKeys>(b_s, bias + j0, nk, tid, kF32Rows);
     __syncthreads();
-    for (int j = 0; j < kF32Keys; ++j) {
-      float s = 0.f;
+    float sc[kF32FwdKeys];
+    float mx = m;
 #pragma unroll
-      for (int d = 0; d < DH; ++d) s = fmaf(qr[d], k_s[j][d], s);
-      const float e = expf(s + b_s[j] - m);
+    for (int j = 0; j < kF32FwdKeys; ++j) {
+      float x = 0.f;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) x = fmaf(qr[d], k_s[j][d], x);
+      sc[j] = x + b_s[j];
+      mx = fmaxf(mx, sc[j]);
+    }
+    const float a = expf(m - mx);   // 1 while the max holds
+    m = mx;
+    l *= a;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) acc[d] *= a;
+#pragma unroll
+    for (int j = 0; j < kF32FwdKeys; ++j) {
+      const float e = expf(sc[j] - m);
       l += e;
 #pragma unroll
       for (int d = 0; d < DH; ++d) acc[d] = fmaf(e, v_s[j][d], acc[d]);
@@ -314,199 +295,6 @@ xattn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < DH; ++d) dst[d] = acc[d] * r;
   }
-}
-
-// ---------------------------------------------------------------------------
-// K3-rect, bf16: dQ and the row statistics, 16 query rows per warp, four
-// sweeps over the keys
-// ---------------------------------------------------------------------------
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-xattn_bwd_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ kbias, float* __restrict__ dq,
-                        float* __restrict__ stats, int H, int Lq, int Lk) {
-  constexpr int QS = DH + 8, KT = DH / 16, NT = DH / 8;
-  __shared__ __align__(16) __nv_bfloat16 a_s[kRows * QS];   // q, then dO
-  __shared__ __align__(16) __nv_bfloat16 k_s[kKeys * QS];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kKeys * QS];
-  __shared__ float b_s[kKeys];
-
-  const int bh = blockIdx.y, b = bh / H;
-  const int q0 = blockIdx.x * kRows, nq = min(kRows, Lq - q0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const float* kb = k + (size_t)bh * Lk * DH;
-  const float* vb = v + (size_t)bh * Lk * DH;
-  const float* bias = kbias + (size_t)b * Lk;
-  const size_t row0 = (size_t)bh * Lq + q0;
-
-  uint32_t qa[KT][4], da[KT][4];
-  stage_f32_bf16<DH>(a_s, q + row0 * DH, nq, kRows, tid);
-  __syncthreads();
-  load_a<DH>(qa, a_s, warp * 16, g, t);
-  __syncthreads();
-  stage_f32_bf16<DH>(a_s, dout + row0 * DH, nq, kRows, tid);
-  __syncthreads();
-  load_a<DH>(da, a_s, warp * 16, g, t);
-
-  // sweep 0: max; 1: sum; 2: delta = rowsum(P dP); 3: dS and dQ = dS K
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
-  float r0 = 0.f, r1 = 0.f, dl0 = 0.f, dl1 = 0.f;
-  float acc[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  for (int sweep = 0; sweep < 4; ++sweep) {
-    const bool want_dp = sweep >= 2;
-    for (int j0 = 0; j0 < Lk; j0 += kKeys) {
-      const int nk = min(kKeys, Lk - j0);
-      __syncthreads();
-      stage_f32_bf16<DH>(k_s, kb + (size_t)j0 * DH, nk, kKeys, tid);
-      if (want_dp) stage_f32_bf16<DH>(v_s, vb + (size_t)j0 * DH, nk, kKeys, tid);
-      stage_bias<kKeys>(b_s, bias + j0, nk, tid, kThreads);
-      __syncthreads();
-#pragma unroll
-      for (int kc = 0; kc < kKeys / 16; ++kc) {
-        uint32_t sa[4];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int n0 = kc * 16 + half * 8;
-          float c[4], dp[4];
-          product8<DH>(c, qa, k_s, n0, g, t);
-          const float b0 = b_s[n0 + 2 * t], b1 = b_s[n0 + 2 * t + 1];
-          c[0] += b0; c[1] += b1; c[2] += b0; c[3] += b1;
-          if (sweep == 0) {
-            m0 = fmaxf(m0, fmaxf(c[0], c[1]));
-            m1 = fmaxf(m1, fmaxf(c[2], c[3]));
-            continue;
-          }
-          if (sweep == 1) {
-            l0 += expf(c[0] - m0) + expf(c[1] - m0);
-            l1 += expf(c[2] - m1) + expf(c[3] - m1);
-            continue;
-          }
-          product8<DH>(dp, da, v_s, n0, g, t);
-          float p[4];
-          p[0] = expf(c[0] - m0) * r0;
-          p[1] = expf(c[1] - m0) * r0;
-          p[2] = expf(c[2] - m1) * r1;
-          p[3] = expf(c[3] - m1) * r1;
-          if (sweep == 2) {
-            dl0 = fmaf(p[1], dp[1], fmaf(p[0], dp[0], dl0));
-            dl1 = fmaf(p[3], dp[3], fmaf(p[2], dp[2], dl1));
-            continue;
-          }
-          sa[2 * half] = pack_bf16(p[0] * (dp[0] - dl0), p[1] * (dp[1] - dl0));
-          sa[2 * half + 1] = pack_bf16(p[2] * (dp[2] - dl1), p[3] * (dp[3] - dl1));
-        }
-        if (sweep == 3) accumulate<DH>(acc, sa, k_s, kc * 16, g, t);
-      }
-    }
-    if (sweep == 0) {
-      m0 = fmaxf(quad_max(m0), -5e29f);
-      m1 = fmaxf(quad_max(m1), -5e29f);
-    } else if (sweep == 1) {
-      r0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
-      r1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
-    } else if (sweep == 2) {
-      dl0 = quad_sum(dl0);
-      dl1 = quad_sum(dl1);
-    }
-  }
-  const int r = q0 + warp * 16 + g;
-  store_rows<DH>(dq + (size_t)bh * Lq * DH, acc, q0 + warp * 16, Lq, 1.f, 1.f, g, t);
-  if (t == 0) {
-    float* st = stats + ((size_t)bh * Lq + r) * 3;
-    if (r < Lq) { st[0] = m0; st[1] = r0; st[2] = dl0; }
-    if (r + 8 < Lq) { st[24] = m1; st[25] = r1; st[26] = dl1; }
-  }
-}
-
-// dK = dS^T q and dV = P^T dO for 64 keys of one (batch, head), 16 per
-// warp, summed over all query rows 64 at a time from the row statistics:
-// S^T = K q^T and dP^T = V dO^T, whose accumulator fragments are reused as
-// the A operand of the next products (attention.cu's dK/dV design with
-// Lq != Lk)
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-xattn_bwd_dkdv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ dout,
-                          const float* __restrict__ kbias, const float* __restrict__ stats,
-                          float* __restrict__ dk, float* __restrict__ dv, int H, int Lq,
-                          int Lk) {
-  constexpr int QS = DH + 8, KT = DH / 16, NT = DH / 8;
-  __shared__ __align__(16) __nv_bfloat16 k_s[kRows * QS];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kRows * QS];
-  __shared__ __align__(16) __nv_bfloat16 q_s[kKeys * QS];
-  __shared__ __align__(16) __nv_bfloat16 do_s[kKeys * QS];
-  __shared__ float st_s[kKeys][3];
-
-  const int bh = blockIdx.y, b = bh / H;
-  const int j0 = blockIdx.x * kRows, nk = min(kRows, Lk - j0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qbase = (size_t)bh * Lq, kbase = (size_t)bh * Lk;
-
-  stage_f32_bf16<DH>(k_s, k + (kbase + j0) * DH, nk, kRows, tid);
-  stage_f32_bf16<DH>(v_s, v + (kbase + j0) * DH, nk, kRows, tid);
-  __syncthreads();
-  uint32_t ka[KT][4], va[KT][4];
-  load_a<DH>(ka, k_s, warp * 16, g, t);
-  load_a<DH>(va, v_s, warp * 16, g, t);
-  const int key0 = j0 + warp * 16 + g, key1 = key0 + 8;
-  const float bk[2] = {key0 < Lk ? kbias[(size_t)b * Lk + key0] : kMasked,
-                       key1 < Lk ? kbias[(size_t)b * Lk + key1] : kMasked};
-
-  float adk[NT][4], adv[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[nt][e] = adv[nt][e] = 0.f;
-
-  for (int i0 = 0; i0 < Lq; i0 += kKeys) {
-    const int ni = min(kKeys, Lq - i0);
-    __syncthreads();
-    stage_f32_bf16<DH>(q_s, q + (qbase + i0) * DH, ni, kKeys, tid);
-    stage_f32_bf16<DH>(do_s, dout + (qbase + i0) * DH, ni, kKeys, tid);
-    for (int i = tid; i < kKeys * 3; i += kThreads) {
-      const int r = i / 3;
-      // rows past Lq get 1/sum = 0 (and zero q), so their P and dS are 0
-      st_s[r][i % 3] = r < ni ? stats[(qbase + i0 + r) * 3 + i % 3] : 0.f;
-    }
-    __syncthreads();
-    for (int qb = 0; qb < ni; qb += 16) {
-      float cs[2][4], cp[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        product8<DH>(cs[j], ka, q_s, qb + 8 * j, g, t);
-        product8<DH>(cp[j], va, do_s, qb + 8 * j, g, t);
-      }
-      // element (key row g + 8*half, query qb + 8*j + 2*t + e); fragment
-      // a[2*j + half] of the 16-key x 16-query A operand
-      uint32_t pa[4], sa[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          float pv[2], sv[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int qi = qb + 8 * j + 2 * t + e;
-            const float p = expf(cs[j][2 * half + e] + bk[half] - st_s[qi][0]) * st_s[qi][1];
-            pv[e] = p;
-            sv[e] = p * (cp[j][2 * half + e] - st_s[qi][2]);
-          }
-          pa[2 * j + half] = pack_bf16(pv[0], pv[1]);
-          sa[2 * j + half] = pack_bf16(sv[0], sv[1]);
-        }
-      }
-      accumulate<DH>(adk, sa, q_s, qb, g, t);
-      accumulate<DH>(adv, pa, do_s, qb, g, t);
-    }
-  }
-  store_rows<DH>(dk + kbase * DH, adk, j0 + warp * 16, Lk, 1.f, 1.f, g, t);
-  store_rows<DH>(dv + kbase * DH, adv, j0 + warp * 16, Lk, 1.f, 1.f, g, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -680,20 +468,10 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const float*
 template <int DH>
 cudaError_t launch_bwd(const float* q, const float* k, const float* v, const float* dout,
                        const float* kbias, float* dq, float* dk, float* dv, float* stats,
-                       int B, int H, int Lq, int Lk, int bf16, cudaStream_t s) {
-  cudaError_t e;
-  if (bf16) {
-    xattn_bwd_dq_mma_kernel<DH><<<dim3((Lq + kRows - 1) / kRows, B * H), kThreads, 0, s>>>(
-        q, k, v, dout, kbias, dq, stats, H, Lq, Lk);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    xattn_bwd_dkdv_mma_kernel<DH><<<dim3((Lk + kRows - 1) / kRows, B * H), kThreads, 0, s>>>(
-        q, k, v, dout, kbias, stats, dk, dv, H, Lq, Lk);
-    return cudaGetLastError();
-  }
+                       int B, int H, int Lq, int Lk, cudaStream_t s) {
   xattn_bwd_dq_f32_kernel<DH><<<dim3((Lq + kF32Rows - 1) / kF32Rows, B * H), kF32Rows, 0, s>>>(
       q, k, v, dout, kbias, dq, stats, H, Lq, Lk);
-  e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   xattn_bwd_dkdv_f32_kernel<DH><<<dim3((Lk + kF32Rows - 1) / kF32Rows, B * H), kF32Rows, 0, s>>>(
       q, k, v, dout, kbias, stats, dk, dv, H, Lq, Lk);
@@ -702,8 +480,8 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v, const flo
 
 }  // namespace
 
-// K6: q (pre-scaled), k, v in the score type (bf16 if bf16 else fp32);
-// kbias (B, Lk) fp32; out (B, H, Lq, Dh) fp32
+// K6, and K2 under fp32: q (pre-scaled), k, v in the score type (bf16 if
+// bf16 else fp32); kbias (B, Lk) fp32; out (B, H, Lq, Dh) fp32
 extern "C" int xattn_fwd(const void* q, const void* k, const void* v, const void* kbias,
                          void* out, int B, int H, int Lq, int Lk, int Dh, int bf16,
                          void* stream) {
@@ -715,19 +493,20 @@ extern "C" int xattn_fwd(const void* q, const void* k, const void* v, const void
   return cudaErrorInvalidValue;
 }
 
-// K3-rect: fp32 q (pre-scaled), k, v, dout; fp32 dq, dk, dv and the (B, H,
-// Lq, 3) row statistics (max, 1/sum, delta)
+// K3 and K3-rect under fp32, any (Lq, Lk): fp32 q (pre-scaled), k, v,
+// dout; fp32 dq, dk, dv and the (B, H, Lq, 3) row statistics (max, 1/sum,
+// delta)
 extern "C" int xattn_bwd(const void* q, const void* k, const void* v, const void* dout,
                          const void* kbias, void* dq, void* dk, void* dv, void* stats,
-                         int B, int H, int Lq, int Lk, int Dh, int bf16, void* stream) {
+                         int B, int H, int Lq, int Lk, int Dh, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto m = [](void* p) { return static_cast<float*>(p); };
   if (Dh == 64)
     return launch_bwd<64>(f(q), f(k), f(v), f(dout), f(kbias), m(dq), m(dk), m(dv),
-                          m(stats), B, H, Lq, Lk, bf16, s);
+                          m(stats), B, H, Lq, Lk, s);
   if (Dh == 32)
     return launch_bwd<32>(f(q), f(k), f(v), f(dout), f(kbias), m(dq), m(dk), m(dv),
-                          m(stats), B, H, Lq, Lk, bf16, s);
+                          m(stats), B, H, Lq, Lk, s);
   return cudaErrorInvalidValue;
 }

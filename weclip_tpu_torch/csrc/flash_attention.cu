@@ -1,0 +1,571 @@
+// Key-tiled ("flash") attention on the tensor cores for sm_90a: the bf16
+// forward without the map (K2) and the bf16 backward for any (Lq, Lk) (K3
+// and K3-rect).  Plain C entry points, loaded with ctypes by
+// weclip_tpu_torch/kernels.py; wrappers in ops/attention_kernels.py.  Under
+// the fp32 score type both run cross_attention.cu's FMA kernels.
+//
+// Replaces (weclip_tpu/ops/pallas_attention.py), under bf16:
+//   K2       attention_core_pallas(export_weights=False)  (_attn_kernel; :195, pallas_call :260)
+//   K3       attention_bwd_pallas, Lq == Lk               (_attn_bwd_kernel; :395, pallas_call :441)
+//   K3-rect  attention_bwd_pallas, Lq != Lk               (the same function)
+//
+// Numerics follow the Pallas kernels: q rounded to bf16(float(q) * scale)
+// as it is staged, fp32 scores and softmax, an additive -1e30 key bias
+// (the wrapper pads it with -1e30 to whole 64-key tiles), the all-masked
+// row guard max(smax, -5e29), denominator >= 1e-30.  Every product runs
+// on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate) with
+// its operands (q, k, v, dO, P, dS) in bf16.  K2 normalizes after P V; the
+// backward takes delta = sum(P * dP) as the plain version does, not
+// rowsum(dO * O).
+//
+// What bounds them on the H100: operations.  K2 at (8, 12, 1025, 64) does
+// 4*B*H*L^2*Dh = 25.8 GFLOP of products (26 us at the bf16 peak) and moves
+// 25 MB (8 us).  K3 at the GradCAM shape (32, 12, 1025, 64) needs
+// 10*B*H*L^2*Dh = 258 GFLOP (0.26 ms); this design runs 18*B*H*L^2*Dh (nine
+// products where five are the minimum: S and dP three times each, for the
+// row statistics, for dQ and for dK/dV), the price of determinism without
+// atomics.
+//
+// Design.  No block keeps a whole score row: every kernel is one block of
+// 4 warps (16 rows each) per (image, head, 64 rows), and loops over 64-row
+// tiles of the other side, staged bf16 in shared memory with cp.async and
+// double-buffered, so the next tile's loads run under this tile's products.
+// Scores live in mma accumulator registers, and each fragment is reused as
+// the A operand of the next product (P V, dS K, P^T dO, dS^T q) without a
+// trip through shared memory; B operands come from ldmatrix (.trans for
+// the tiles read along keys).  A block needs under 47 KB of shared memory,
+// so several fit on an SM.
+// - K2, bf16: one sweep with online softmax; the accumulator is rescaled
+//   when a tile raises the row max (P is rounded to bf16 against the
+//   running max, the plain version against the final max: the outputs
+//   differ by at most one bf16 rounding).
+// - K3, bf16: a dQ kernel per 64 query rows makes two sweeps over the keys,
+//   the first for each row's (max, sum, delta) online, the second for
+//   dS = P (dP - delta) and dQ = dS K; it writes (max, 1/sum, delta).  A
+//   dK/dV kernel per 64 keys loops over the query tiles with those
+//   statistics.
+
+#include "common.cuh"
+
+using namespace weclip;
+
+namespace {
+
+using bf = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;   // query rows (dK/dV: keys) per block
+constexpr int kTile = 64;            // keys (dK/dV: query rows) per staged tile
+constexpr float kFloor = -5e29f;     // the all-masked row guard of the max
+
+// the key bias is padded to whole tiles
+__device__ __forceinline__ int padded(int l) { return (l + kTile - 1) / kTile * kTile; }
+
+__device__ __forceinline__ uint32_t scale2(uint32_t x, float s) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  return pack_bf16(f.x * s, f.y * s);
+}
+
+// eight bf16 values x -> bf16(float(x) * s)
+__device__ __forceinline__ uint4 scale8(uint4 x, float s) {
+  return make_uint4(scale2(x.x, s), scale2(x.y, s), scale2(x.z, s), scale2(x.w, s));
+}
+
+// rows [0, n) of a DH-wide bf16 array into shared memory (row stride
+// DH + 8) as bf16(x * scale), zeros in rows [n, kRows); plain loads
+template <int DH>
+__device__ __forceinline__ void stage_scaled(bf* dst, const bf* src, int n, float scale,
+                                             int tid) {
+  constexpr int kVec = DH / 8;
+  for (int i = tid; i < kRows * kVec; i += kThreads) {
+    const int r = i / kVec, c = (i % kVec) * 8;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (r < n) x = scale8(*reinterpret_cast<const uint4*>(src + (size_t)r * DH + c), scale);
+    *reinterpret_cast<uint4*>(dst + r * (DH + 8) + c) = x;
+  }
+}
+
+// the same without scaling, by cp.async (zeros in rows [n, kTile))
+template <int DH>
+__device__ __forceinline__ void async_tile(bf* dst, const bf* src, int n, int tid) {
+  constexpr int kVec = DH / 8;
+  for (int i = tid; i < kTile * kVec; i += kThreads) {
+    const int r = i / kVec, c = (i % kVec) * 8;
+    const bool in = r < n;
+    cp_async16(dst + r * (DH + 8) + c, src + (size_t)(in ? r : 0) * DH + c, in ? 16 : 0);
+  }
+}
+
+// a tile staged by async_tile, rounded to bf16(x * scale) in place by the
+// threads that copied each part (after their copies completed, before the
+// barrier that publishes the tile)
+template <int DH>
+__device__ __forceinline__ void scale_tile(bf* tile, float scale, int tid) {
+  constexpr int kVec = DH / 8;
+  for (int i = tid; i < kTile * kVec; i += kThreads) {
+    uint4* p = reinterpret_cast<uint4*>(tile + (i / kVec) * (DH + 8) + (i % kVec) * 8);
+    *p = scale8(*p, scale);
+  }
+}
+
+// the A fragments (rows [row0, row0 + 16), DH wide) of a staged tile
+template <int DH>
+__device__ __forceinline__ void load_a(uint32_t (&a)[DH / 16][4], const bf* s, int row0,
+                                       int lane) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    ldsm_x4(a[kk], s + (row0 + (lane & 15)) * (DH + 8) + kk * 16 + (lane >> 4) * 8);
+}
+
+// c[h] = A (16 x DH) times rows [n0 + 8h, n0 + 8h + 8) of a staged tile,
+// transposed: the 16 x 16 block of S = q K^T (or dP = dO V^T, or their
+// transposes) at column n0
+template <int DH>
+__device__ __forceinline__ void product16(float (&c)[2][4], const uint32_t (&a)[DH / 16][4],
+                                          const bf* tile, int n0, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) c[h][0] = c[h][1] = c[h][2] = c[h][3] = 0.f;
+  const bf* p = tile + (n0 + (lane & 7) + (lane >> 4) * 8) * (DH + 8) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    uint32_t b[4];
+    ldsm_x4(b, p + kk * 16);
+    mma_bf16(c[0], a[kk][0], a[kk][1], a[kk][2], a[kk][3], b[0], b[1]);
+    mma_bf16(c[1], a[kk][0], a[kk][1], a[kk][2], a[kk][3], b[2], b[3]);
+  }
+}
+
+// acc (16 x DH) += A (16 x 16) times rows [k0, k0 + 16) of a staged tile:
+// P V, dS K, P^T dO or dS^T q
+template <int DH>
+__device__ __forceinline__ void accumulate(float (&acc)[DH / 8][4], const uint32_t (&a)[4],
+                                           const bf* tile, int k0, int lane) {
+  const bf* p = tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * (DH + 8) + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < DH / 16; ++np) {
+    uint32_t b[4];
+    ldsm_x4_trans(b, p + np * 16);
+    mma_bf16(acc[2 * np], a[0], a[1], a[2], a[3], b[0], b[1]);
+    mma_bf16(acc[2 * np + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
+  }
+}
+
+// fp32 (16 x DH) fragments to rows [r0, r0 + 16) of a row-major fp32 array,
+// rows past `rows` skipped
+template <int DH>
+__device__ __forceinline__ void store_f32(float* dst, const float (&acc)[DH / 8][4], int r0,
+                                          int rows, int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt) {
+    const int col = nt * 8 + 2 * t;
+    if (r0 + g < rows)
+      *reinterpret_cast<float2*>(dst + (size_t)(r0 + g) * DH + col) =
+          make_float2(acc[nt][0], acc[nt][1]);
+    if (r0 + g + 8 < rows)
+      *reinterpret_cast<float2*>(dst + (size_t)(r0 + g + 8) * DH + col) =
+          make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void zero(float (&acc)[DH / 8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// K2, bf16: one block per (image, head, 64 query rows); one sweep over
+// 64-key tiles with online softmax
+// ---------------------------------------------------------------------------
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_mma_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
+                     const bf* __restrict__ v, const float* __restrict__ kbias,
+                     bf* __restrict__ out, int H, int L, float scale) {
+  constexpr int QS = DH + 8, KT = DH / 16, NT = DH / 8;
+  __shared__ __align__(16) bf q_s[kRows * QS];
+  __shared__ __align__(16) bf k_s[2][kTile * QS];
+  __shared__ __align__(16) bf v_s[2][kTile * QS];
+  __shared__ __align__(16) float b_s[2][kTile];
+
+  const int bh = blockIdx.y, b = bh / H, q0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t base = (size_t)bh * L;
+  const bf* kb = k + base * DH;
+  const bf* vb = v + base * DH;
+  const float* bias = kbias + (size_t)b * padded(L);
+  const int ntiles = (L + kTile - 1) / kTile;
+
+  auto stage = [&](int it) {
+    const int j0 = it * kTile, n = min(kTile, L - j0), s = it & 1;
+    async_tile<DH>(k_s[s], kb + (size_t)j0 * DH, n, tid);
+    async_tile<DH>(v_s[s], vb + (size_t)j0 * DH, n, tid);
+    if (tid < kTile / 4) cp_async16(b_s[s] + 4 * tid, bias + j0 + 4 * tid, 16);
+    cp_async_commit();
+  };
+  stage(0);
+  stage_scaled<DH>(q_s, q + (base + q0) * DH, min(kRows, L - q0), scale, tid);
+  __syncthreads();
+  uint32_t qa[KT][4];
+  load_a<DH>(qa, q_s, warp * 16, lane);
+
+  // rows g and g + 8 of this warp's 16: running max, sum, P V
+  float m0 = kFloor, m1 = kFloor, l0 = 0.f, l1 = 0.f;
+  float acc[NT][4];
+  zero<DH>(acc);
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1;
+    if (it + 1 < ntiles) {
+      stage(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float sc[kTile / 16][2][4];
+    float n0 = m0, n1 = m1;
+#pragma unroll
+    for (int kc = 0; kc < kTile / 16; ++kc) {
+      product16<DH>(sc[kc], qa, k_s[s], kc * 16, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float b0 = b_s[s][kc * 16 + h * 8 + 2 * t], b1 = b_s[s][kc * 16 + h * 8 + 2 * t + 1];
+        sc[kc][h][0] += b0;
+        sc[kc][h][1] += b1;
+        sc[kc][h][2] += b0;
+        sc[kc][h][3] += b1;
+        n0 = fmaxf(n0, fmaxf(sc[kc][h][0], sc[kc][h][1]));
+        n1 = fmaxf(n1, fmaxf(sc[kc][h][2], sc[kc][h][3]));
+      }
+    }
+    n0 = quad_max(n0);
+    n1 = quad_max(n1);
+    const float a0 = expf(m0 - n0), a1 = expf(m1 - n1);   // 1 while the max holds
+    m0 = n0;
+    m1 = n1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      acc[nt][0] *= a0;
+      acc[nt][1] *= a0;
+      acc[nt][2] *= a1;
+      acc[nt][3] *= a1;
+    }
+#pragma unroll
+    for (int kc = 0; kc < kTile / 16; ++kc) {
+      uint32_t pa[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float e0 = expf(sc[kc][h][0] - m0), e1 = expf(sc[kc][h][1] - m0);
+        const float e2 = expf(sc[kc][h][2] - m1), e3 = expf(sc[kc][h][3] - m1);
+        l0 += e0 + e1;
+        l1 += e2 + e3;
+        pa[2 * h] = pack_bf16(e0, e1);       // row g
+        pa[2 * h + 1] = pack_bf16(e2, e3);   // row g + 8
+      }
+      accumulate<DH>(acc, pa, v_s[s], kc * 16, lane);
+    }
+    __syncthreads();
+  }
+  const float r0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+  const float r1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+  const int row = q0 + warp * 16 + g;
+  bf* o = out + base * DH;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = nt * 8 + 2 * t;
+    if (row < L)
+      *reinterpret_cast<__nv_bfloat162*>(o + (size_t)row * DH + col) =
+          __floats2bfloat162_rn(acc[nt][0] * r0, acc[nt][1] * r0);
+    if (row + 8 < L)
+      *reinterpret_cast<__nv_bfloat162*>(o + (size_t)(row + 8) * DH + col) =
+          __floats2bfloat162_rn(acc[nt][2] * r1, acc[nt][3] * r1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3, bf16: dQ and the row statistics for 64 query rows of one (image,
+// head): sweep 1 over the keys takes each row's max, sum and
+// sum(exp * dP) online; sweep 2 forms dS and accumulates dQ = dS K
+// ---------------------------------------------------------------------------
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
+                    const bf* __restrict__ v, const bf* __restrict__ dout,
+                    const float* __restrict__ kbias, float* __restrict__ dq,
+                    float* __restrict__ stats, int H, int Lq, int Lk, float scale) {
+  constexpr int QS = DH + 8, KT = DH / 16, NT = DH / 8;
+  __shared__ __align__(16) bf a_s[kRows * QS];   // q, then dO
+  __shared__ __align__(16) bf k_s[2][kTile * QS];
+  __shared__ __align__(16) bf v_s[2][kTile * QS];
+  __shared__ __align__(16) float b_s[2][kTile];
+
+  const int bh = blockIdx.y, b = bh / H;
+  const int q0 = blockIdx.x * kRows, nq = min(kRows, Lq - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf* kb = k + (size_t)bh * Lk * DH;
+  const bf* vb = v + (size_t)bh * Lk * DH;
+  const float* bias = kbias + (size_t)b * padded(Lk);
+  const size_t row0 = (size_t)bh * Lq + q0;
+  const int ntiles = (Lk + kTile - 1) / kTile;
+
+  auto stage = [&](int it) {   // sweep-wide tile index: both sweeps in one pipeline
+    const int j0 = (it % ntiles) * kTile, n = min(kTile, Lk - j0), s = it & 1;
+    async_tile<DH>(k_s[s], kb + (size_t)j0 * DH, n, tid);
+    async_tile<DH>(v_s[s], vb + (size_t)j0 * DH, n, tid);
+    if (tid < kTile / 4) cp_async16(b_s[s] + 4 * tid, bias + j0 + 4 * tid, 16);
+    cp_async_commit();
+  };
+  stage(0);
+  uint32_t qa[KT][4], da[KT][4];
+  stage_scaled<DH>(a_s, q + row0 * DH, nq, scale, tid);
+  __syncthreads();
+  load_a<DH>(qa, a_s, warp * 16, lane);
+  __syncthreads();
+  stage_scaled<DH>(a_s, dout + row0 * DH, nq, 1.f, tid);
+  __syncthreads();
+  load_a<DH>(da, a_s, warp * 16, lane);
+
+  // rows g and g + 8: max, sum (then 1/sum), sum(exp * dP) (then delta)
+  float m0 = kFloor, m1 = kFloor, l0 = 0.f, l1 = 0.f, d0 = 0.f, d1 = 0.f;
+  float acc[NT][4];
+  zero<DH>(acc);
+  for (int it = 0; it < 2 * ntiles; ++it) {
+    const int s = it & 1;
+    if (it + 1 < 2 * ntiles) {
+      stage(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bool stats_sweep = it < ntiles;   // uniform across the block
+    if (it == ntiles) {
+      l0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+      l1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+      d0 = quad_sum(d0) * l0;
+      d1 = quad_sum(d1) * l1;
+    }
+#pragma unroll
+    for (int kc = 0; kc < kTile / 16; ++kc) {
+      float sc[2][4], dp[2][4];
+      product16<DH>(sc, qa, k_s[s], kc * 16, lane);
+      product16<DH>(dp, da, v_s[s], kc * 16, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float b0 = b_s[s][kc * 16 + h * 8 + 2 * t], b1 = b_s[s][kc * 16 + h * 8 + 2 * t + 1];
+        sc[h][0] += b0;
+        sc[h][1] += b1;
+        sc[h][2] += b0;
+        sc[h][3] += b1;
+      }
+      if (stats_sweep) {
+        float n0 = m0, n1 = m1;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          n0 = fmaxf(n0, fmaxf(sc[h][0], sc[h][1]));
+          n1 = fmaxf(n1, fmaxf(sc[h][2], sc[h][3]));
+        }
+        n0 = quad_max(n0);
+        n1 = quad_max(n1);
+        const float a0 = expf(m0 - n0), a1 = expf(m1 - n1);
+        m0 = n0;
+        m1 = n1;
+        l0 *= a0;
+        d0 *= a0;
+        l1 *= a1;
+        d1 *= a1;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float e0 = expf(sc[h][0] - m0), e1 = expf(sc[h][1] - m0);
+          const float e2 = expf(sc[h][2] - m1), e3 = expf(sc[h][3] - m1);
+          l0 += e0 + e1;
+          l1 += e2 + e3;
+          d0 = fmaf(e1, dp[h][1], fmaf(e0, dp[h][0], d0));
+          d1 = fmaf(e3, dp[h][3], fmaf(e2, dp[h][2], d1));
+        }
+      } else {
+        uint32_t sa[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float p0 = expf(sc[h][0] - m0) * l0, p1 = expf(sc[h][1] - m0) * l0;
+          const float p2 = expf(sc[h][2] - m1) * l1, p3 = expf(sc[h][3] - m1) * l1;
+          sa[2 * h] = pack_bf16(p0 * (dp[h][0] - d0), p1 * (dp[h][1] - d0));
+          sa[2 * h + 1] = pack_bf16(p2 * (dp[h][2] - d1), p3 * (dp[h][3] - d1));
+        }
+        accumulate<DH>(acc, sa, k_s[s], kc * 16, lane);
+      }
+    }
+    __syncthreads();
+  }
+  store_f32<DH>(dq + (size_t)bh * Lq * DH, acc, q0 + warp * 16, Lq, g, t);
+  const int r = q0 + warp * 16 + g;
+  if (t == 0) {
+    float* st = stats + ((size_t)bh * Lq + r) * 3;
+    if (r < Lq) { st[0] = m0; st[1] = l0; st[2] = d0; }
+    if (r + 8 < Lq) { st[24] = m1; st[25] = l1; st[26] = d1; }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3, bf16: dK = dS^T q and dV = P^T dO for 64 keys of one (image, head),
+// 16 per warp, summed over 64-row query tiles from the row statistics:
+// S^T = K q^T and dP^T = V dO^T give P^T and dS^T, reused as A operands
+// ---------------------------------------------------------------------------
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
+                      const bf* __restrict__ v, const bf* __restrict__ dout,
+                      const float* __restrict__ kbias, const float* __restrict__ stats,
+                      float* __restrict__ dk, float* __restrict__ dv, int H, int Lq, int Lk,
+                      float scale) {
+  constexpr int QS = DH + 8, KT = DH / 16, NT = DH / 8;
+  static_assert(kRows == kTile, "the key block is staged through a query tile buffer");
+  __shared__ __align__(16) bf q_s[2][kTile * QS];
+  __shared__ __align__(16) bf do_s[2][kTile * QS];
+  __shared__ __align__(16) float st_s[2][kTile * 3];
+
+  const int bh = blockIdx.y, b = bh / H;
+  const int j0 = blockIdx.x * kRows, nk = min(kRows, Lk - j0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qbase = (size_t)bh * Lq, kbase = (size_t)bh * Lk;
+  const bf* qb = q + qbase * DH;
+  const bf* dob = dout + qbase * DH;
+  const float* sb = stats + qbase * 3;
+  const int ntiles = (Lq + kTile - 1) / kTile;
+
+  // this warp's 16 keys and values as A fragments, held for the whole loop
+  stage_scaled<DH>(q_s[0], k + (kbase + j0) * DH, nk, 1.f, tid);
+  stage_scaled<DH>(do_s[0], v + (kbase + j0) * DH, nk, 1.f, tid);
+  __syncthreads();
+  uint32_t ka[KT][4], va[KT][4];
+  load_a<DH>(ka, q_s[0], warp * 16, lane);
+  load_a<DH>(va, do_s[0], warp * 16, lane);
+  const int key0 = j0 + warp * 16 + g;
+  // keys past Lk carry the padding's -1e30: their P and dS are exactly 0
+  const float bk[2] = {kbias[(size_t)b * padded(Lk) + key0],
+                       kbias[(size_t)b * padded(Lk) + key0 + 8]};
+  __syncthreads();
+
+  auto stage = [&](int it) {
+    const int i0 = it * kTile, n = min(kTile, Lq - i0), s = it & 1;
+    async_tile<DH>(q_s[s], qb + (size_t)i0 * DH, n, tid);
+    async_tile<DH>(do_s[s], dob + (size_t)i0 * DH, n, tid);
+    // rows past Lq get zero statistics: 1/sum = 0, so their P and dS are 0
+    for (int i = tid; i < kTile * 3; i += kThreads) {
+      const bool in = i < n * 3;
+      cp_async4(st_s[s] + i, sb + (size_t)i0 * 3 + (in ? i : 0), in ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  stage(0);
+
+  float adk[NT][4], adv[NT][4];
+  zero<DH>(adk);
+  zero<DH>(adv);
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1;
+    if (it + 1 < ntiles) {
+      stage(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (scale != 1.f) scale_tile<DH>(q_s[s], scale, tid);
+    __syncthreads();
+    const int ni = min(kTile, Lq - it * kTile);
+    for (int qc = 0; qc < ni; qc += 16) {
+      float cs[2][4], cp[2][4];
+      product16<DH>(cs, ka, q_s[s], qc, lane);
+      product16<DH>(cp, va, do_s[s], qc, lane);
+      // element (key g + 8 half, query qc + 8 j + 2 t + e) is fragment
+      // a[2 j + half] of the 16-key x 16-query A operand
+      uint32_t pa[4], sa[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float pv[2], sv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float* st = st_s[s] + (qc + 8 * j + 2 * t + e) * 3;
+            const float p = expf(cs[j][2 * half + e] + bk[half] - st[0]) * st[1];
+            pv[e] = p;
+            sv[e] = p * (cp[j][2 * half + e] - st[2]);
+          }
+          pa[2 * j + half] = pack_bf16(pv[0], pv[1]);
+          sa[2 * j + half] = pack_bf16(sv[0], sv[1]);
+        }
+      }
+      accumulate<DH>(adk, sa, q_s[s], qc, lane);
+      accumulate<DH>(adv, pa, do_s[s], qc, lane);
+    }
+    __syncthreads();
+  }
+  store_f32<DH>(dk + kbase * DH, adk, j0 + warp * 16, Lk, g, t);
+  store_f32<DH>(dv + kbase * DH, adv, j0 + warp * 16, Lk, g, t);
+}
+
+template <int DH>
+cudaError_t launch_fwd(const bf* q, const bf* k, const bf* v, const float* kbias, bf* out,
+                       int B, int H, int L, float scale, cudaStream_t s) {
+  flash_fwd_mma_kernel<DH><<<dim3((L + kRows - 1) / kRows, B * H), kThreads, 0, s>>>(
+      q, k, v, kbias, out, H, L, scale);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_bwd(const bf* q, const bf* k, const bf* v, const bf* dout,
+                       const float* kbias, float* dq, float* dk, float* dv, float* stats,
+                       int B, int H, int Lq, int Lk, float scale, cudaStream_t s) {
+  flash_bwd_dq_kernel<DH><<<dim3((Lq + kRows - 1) / kRows, B * H), kThreads, 0, s>>>(
+      q, k, v, dout, kbias, dq, stats, H, Lq, Lk, scale);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkdv_kernel<DH><<<dim3((Lk + kRows - 1) / kRows, B * H), kThreads, 0, s>>>(
+      q, k, v, dout, kbias, stats, dk, dv, H, Lq, Lk, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K2, bf16: q (unscaled), k, v (B, H, L, Dh); kbias (B, L rounded up to
+// 64) fp32, -1e30 in the padding; out (B, H, L, Dh) bf16
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* kbias,
+                         void* out, int B, int H, int L, int Dh, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto c = [](const void* p) { return static_cast<const bf*>(p); };
+  const float* kb = static_cast<const float*>(kbias);
+  bf* o = static_cast<bf*>(out);
+  if (Dh == 64) return launch_fwd<64>(c(q), c(k), c(v), kb, o, B, H, L, scale, s);
+  if (Dh == 32) return launch_fwd<32>(c(q), c(k), c(v), kb, o, B, H, L, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// K3 / K3-rect, bf16: q (B, H, Lq, Dh), taken as bf16(q * scale); k, v
+// (B, H, Lk, Dh); dout (B, H, Lq, Dh); kbias (B, Lk rounded up to 64) fp32;
+// fp32 dq, dk, dv (w.r.t. the scaled q) and the (B, H, Lq, 3) row
+// statistics (max, 1/sum, delta)
+extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
+                         const void* kbias, void* dq, void* dk, void* dv, void* stats,
+                         int B, int H, int Lq, int Lk, int Dh, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto c = [](const void* p) { return static_cast<const bf*>(p); };
+  const auto m = [](void* p) { return static_cast<float*>(p); };
+  const float* kb = static_cast<const float*>(kbias);
+  if (Dh == 64)
+    return launch_bwd<64>(c(q), c(k), c(v), c(dout), kb, m(dq), m(dk), m(dv), m(stats), B, H,
+                          Lq, Lk, scale, s);
+  if (Dh == 32)
+    return launch_bwd<32>(c(q), c(k), c(v), c(dout), kb, m(dq), m(dk), m(dv), m(stats), B, H,
+                          Lq, Lk, scale, s);
+  return cudaErrorInvalidValue;
+}

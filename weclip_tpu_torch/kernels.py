@@ -33,20 +33,25 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every function returns the cudaError_t of its launches
 SIGNATURES = {
     "attention": {
-        # q, k, v, kbias, out, map, B, H, L, Dh, scale, bf16, export, stream
-        "attn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
-        # q(pre-scaled), k, v, do, kbias, dq, dk, dv, stats, B, H, L, Dh,
-        # bf16, stream
-        "attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _I, _P],
+        # q, k, v, kbias, out, map, B, H, L, Dh, scale, bf16, stream
+        "attn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    },
+    "flash_attention": {
+        # bf16 q, k, v, kbias (padded to 64 keys), out, B, H, L, Dh, scale,
+        # stream
+        "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        # q, k, v, do (bf16), kbias (padded), dq, dk, dv, stats, B, H, Lq,
+        # Lk, Dh, scale, stream
+        "flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _F, _P],
     },
     "cross_attention": {
         # q(pre-scaled), k, v, kbias, out, B, H, Lq, Lk, Dh, bf16, stream
         "xattn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        # q(pre-scaled), k, v, do, kbias, dq, dk, dv, stats, B, H, Lq, Lk,
-        # Dh, bf16, stream
+        # fp32 q(pre-scaled), k, v, do, kbias, dq, dk, dv, stats, B, H, Lq,
+        # Lk, Dh, stream
         "xattn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _I, _I, _P],
+                      _I, _P],
     },
     "par": {
         # img, aff, posw, B, H, W, dilations, n_dil, w1, stream

@@ -13,9 +13,13 @@ Each wrapper sits beside its plain PyTorch version:
   ``custom_vjp`` _cross_core_fused).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel (csrc/attention.cu, csrc/cross_attention.cu) or raises.
-The TPU stream padding (``stream_pad_len``/``pad_stream``, and CoMer's
-128-multiples) is not ported: the kernels run at the true sequence lengths.
+launches its kernel or raises.  Sources: K1 ``csrc/attention.cu`` (whole
+score rows in shared memory, for the head sum of the map); K2, K3 and
+K3-rect under bf16, ``csrc/flash_attention.cu`` (key-tiled, any length; K3
+reads bf16 q, k, v and dO as they come and scales q as it stages it); K6,
+and K2 and the backward under fp32 (FMA loops), ``csrc/cross_attention.cu``.  The TPU stream padding
+(``stream_pad_len``/``pad_stream``, and CoMer's 128-multiples) is not
+ported: the kernels run at the true sequence lengths.
 """
 
 from __future__ import annotations
@@ -35,23 +39,26 @@ def _key_bias(kmask: torch.Tensor) -> torch.Tensor:
     return (kmask.float() - 1.0) * 1e30
 
 
+def _padded_key_bias(kmask: torch.Tensor, tile: int = 64) -> torch.Tensor:
+    """The key bias padded with -1e30 to whole ``tile``-key tiles, as the
+    key-tiled kernels stage it: (B, L rounded up to ``tile``)."""
+    pad = -kmask.shape[1] % tile
+    return torch.nn.functional.pad(_key_bias(kmask), (0, pad), value=-1e30).contiguous()
+
+
 def _check_cuda(name: str, kmask: torch.Tensor, *tensors: torch.Tensor) -> None:
-    """The kernels read ``tensors`` directly (CUDA, contiguous) and the key
-    bias built from ``kmask`` (CUDA, any layout)."""
+    """The kernels read ``tensors`` directly (CUDA, contiguous, 16-byte
+    aligned) and the key bias built from ``kmask`` (CUDA, any layout)."""
     for t in (kmask,) + tensors:
         if t.device != tensors[0].device:
             raise ValueError(f"{name}: expected tensors on one CUDA device, "
                              f"got {t.device} and {tensors[0].device}")
     for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous tensors")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: expected contiguous, 16-byte aligned tensors")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the kernel has no autograd rule here; "
                            "use AttentionCoreFn for a differentiable call")
-
-
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -87,9 +94,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kmask: torch.Tensor, export_weights: bool = True
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K1 (``export_weights=True``) / K2 on CUDA; the plain version on CPU.
-    A block keeps its score rows in shared memory, which bounds L (about
-    1500 under bf16 with the map): the C side reports a larger L as a CUDA
-    error, which ``kernels.call`` raises."""
+    K1 keeps its score rows in shared memory, which bounds L (about 1500
+    under bf16): the C side reports a larger L as a CUDA error, which
+    ``kernels.call`` raises.  K2 takes any L."""
     if not q.is_cuda:
         return attention_core_plain(q, k, v, kmask, export_weights)
     _check_cuda("attention_core", kmask, q, k, v)
@@ -102,19 +109,33 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention_core: kmask {tuple(kmask.shape)} != {(b, l)}")
     if dh not in (32, 64):
         raise ValueError(f"attention_core: head dim {dh} not in (32, 64)")
-    bias = _key_bias(kmask).contiguous()
     out = torch.empty_like(q)
-    amap = (torch.empty((b, l, l), device=q.device, dtype=torch.float32)
-            if export_weights else None)
+    scale, bf16 = dh ** -0.5, q.dtype == torch.bfloat16
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        kernels.call("attention", "attn_fwd", q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), bias.data_ptr(), out.data_ptr(), _ptr(amap),
-                     b, h, l, dh, ctypes.c_float(dh ** -0.5),
-                     int(q.dtype == torch.bfloat16), int(export_weights), stream)
-    kernels.launches["attention_fwd_export" if export_weights
-                     else "attention_fwd"] += 1
-    return out, amap
+        if export_weights:
+            bias = _key_bias(kmask).contiguous()
+            amap = torch.empty((b, l, l), device=q.device, dtype=torch.float32)
+            kernels.call("attention", "attn_fwd", q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                         amap.data_ptr(), b, h, l, dh, ctypes.c_float(scale),
+                         int(bf16), stream)
+            kernels.launches["attention_fwd_export"] += 1
+            return out, amap
+        if bf16:
+            bias = _padded_key_bias(kmask)
+            kernels.call("flash_attention", "flash_fwd", q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, l, dh,
+                         ctypes.c_float(scale), stream)
+        else:
+            # the FMA forward K6 runs under fp32, on the pre-scaled q
+            qs = q * scale
+            bias = _key_bias(kmask).contiguous()
+            kernels.call("cross_attention", "xattn_fwd", qs.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, l, l,
+                         dh, 0, stream)
+    kernels.launches["attention_fwd"] += 1
+    return out, None
 
 
 # ---------------------------------------------------------------------------
@@ -150,15 +171,21 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, kmask: torch.Tensor,
                   score_dtype: torch.dtype,
-                  stats: Optional[torch.Tensor] = None
+                  stats: Optional[torch.Tensor] = None,
+                  q_scale: float = 1.0
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """On CUDA, K3 for Lq == Lk (csrc/attention.cu) and K3-rect for Lq != Lk
-    (csrc/cross_attention.cu); the plain version on CPU.  q, do (B, H, Lq,
-    Dh); k, v (B, H, Lk, Dh); kmask (B, Lk).  ``stats``, a (B, H, Lq, 3) fp32
-    CUDA buffer, receives each query row's (max score, 1/sum, delta) from
-    the kernel's first pass."""
+    """K3 (Lq == Lk) and K3-rect (Lq != Lk) on CUDA, the plain version on
+    CPU.  q, do (B, H, Lq, Dh); k, v (B, H, Lk, Dh); kmask (B, Lk).  The
+    attention runs on the scaled query ``q * q_scale`` (taken in fp32, then
+    rounded to the score type), and fp32 (dq, dk, dv) are the gradients
+    with respect to it.  Under bf16 the kernels (csrc/flash_attention.cu)
+    read q, k, v and do in bf16 (other dtypes are cast first); under fp32
+    the FMA kernels of csrc/cross_attention.cu run.  ``stats``, a (B, H, Lq,
+    3) fp32 CUDA buffer, receives each query row's (max score, 1/sum,
+    delta)."""
     if not q.is_cuda:
-        return attention_bwd_plain(q, k, v, do, kmask, score_dtype)
+        qs = q if q_scale == 1.0 else q.float() * q_scale
+        return attention_bwd_plain(qs, k, v, do, kmask, score_dtype)
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     if (do.shape != q.shape or v.shape != k.shape
@@ -171,28 +198,33 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention_bwd: head dim {dh} not in (32, 64)")
     if score_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attention_bwd: unsupported score dtype {score_dtype}")
-    qf, kf, vf, dof = (t.float().contiguous() for t in (q, k, v, do))
-    _check_cuda("attention_bwd", kmask, qf, kf, vf, dof)
-    bias = _key_bias(kmask).contiguous()
-    dq = torch.empty_like(qf)
-    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+    dq = torch.empty(q.shape, device=q.device, dtype=torch.float32)
+    dk = torch.empty(k.shape, device=q.device, dtype=torch.float32)
+    dv = torch.empty_like(dk)
     if stats is None:
         stats = torch.empty((b, h, lq, 3), device=q.device, dtype=torch.float32)
     elif (tuple(stats.shape) != (b, h, lq, 3) or stats.dtype != torch.float32
           or stats.device != q.device or not stats.is_contiguous()):
         raise ValueError("attention_bwd: stats must be a contiguous (B, H, Lq, 3) "
                          "fp32 tensor on q's device")
-    bf16 = int(score_dtype == torch.bfloat16)
-    ptrs = (qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(),
-            bias.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr())
+    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if lq == lk:
-            kernels.call("attention", "attn_bwd", *ptrs, b, h, lq, dh, bf16, stream)
+        if score_dtype == torch.bfloat16:
+            ins = [t.to(torch.bfloat16).contiguous() for t in (q, k, v, do)]
+            _check_cuda("attention_bwd", kmask, *ins)
+            bias = _padded_key_bias(kmask)
+            kernels.call("flash_attention", "flash_bwd",
+                         *(t.data_ptr() for t in ins), bias.data_ptr(), *outs,
+                         b, h, lq, lk, dh, ctypes.c_float(q_scale), stream)
         else:
-            kernels.call("cross_attention", "xattn_bwd", *ptrs, b, h, lq, lk, dh,
-                         bf16, stream)
+            qf = q.float() * q_scale if q_scale != 1.0 else q.float()
+            ins = [t.contiguous() for t in (qf, k.float(), v.float(), do.float())]
+            _check_cuda("attention_bwd", kmask, *ins)
+            bias = _key_bias(kmask).contiguous()
+            kernels.call("cross_attention", "xattn_bwd",
+                         *(t.data_ptr() for t in ins), bias.data_ptr(), *outs,
+                         b, h, lq, lk, dh, stream)
     kernels.launches["attention_bwd" if lq == lk else "attention_bwd_rect"] += 1
     return dq, dk, dv
 
@@ -269,8 +301,8 @@ class AttentionCoreFn(torch.autograd.Function):
     def backward(ctx, g_out, _g_map_assumed_zero):
         q, k, v, kmask = ctx.saved_tensors
         scale = q.shape[-1] ** -0.5
-        dq, dk, dv = attention_bwd(q.float() * scale, k, v, g_out.float(),
-                                   kmask, score_dtype=q.dtype)
+        dq, dk, dv = attention_bwd(q, k, v, g_out, kmask, score_dtype=q.dtype,
+                                   q_scale=scale)
         return (dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
 
 
