@@ -11,11 +11,13 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
    all at once);
 3. each kernel (K1-K6, K3-rect) against its plain PyTorch version on the
    card, on seeded inputs at the shapes of the paths below, each output
-   against its own stated tolerance (K3 also against a float64 evaluation;
-   ``AttentionCoreFn`` and ``CrossAttentionCoreFn`` against their kernels
-   and fp32 autograd), timed beside its plain version, a PyTorch library
-   call where one computes the same function, and the least time the card
-   could take (``bound_ms``);
+   against its own stated tolerance (K1 also each of its two launches, at
+   L 1025 and 4096, and its map bit-equal across two calls; K3 also against
+   a float64 evaluation; ``AttentionCoreFn`` and ``CrossAttentionCoreFn``
+   against their kernels and fp32 autograd), timed beside its plain
+   version, a PyTorch library call where one computes the same function
+   (SDPA at every K2, K3, K3-rect and K6 shape), and the least time the
+   card could take (``bound_ms``);
 4. ``WeCLIPPipeline(device="cuda")`` at full ViT-B/16 width with seeded
    random weights: ``pseudo_label_batch`` and ``segment_batch`` (msc +
    flip) on 8 synthetic VOC-sized images; then one image at the fp32
@@ -36,6 +38,7 @@ after it; every kernel must have launched on that main path.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 import math
@@ -317,11 +320,45 @@ def k3_inputs(b, l, canvas, gen, h: int = 12, dh: int = 64):
     return q, k, v, do, km
 
 
+def k1_checks(q, k, v, km, what: str):
+    """K1 (bf16) on one input: its output to one bf16 ulp of the plain
+    version's largest |out|; its map to 2e-5 of the plain map; its two
+    launches each against its plain version (the row statistics to 1e-5
+    relative: fp32 sums of up to L terms taken in another order; the map
+    launch, fed the kernel's own statistics, to 2e-5); and a second call's
+    map bit-equal to the first.  Returns (checks, record fields)."""
+    import torch
+    from weclip_tpu_torch.ops import attention_kernels as ak
+    b, h, l, _ = q.shape
+    stats = torch.empty((b, h, l, 2), device="cuda")
+    out, amap = ak.attention_core(q, k, v, km, export_weights=True, stats=stats)
+    ref_out, ref_map = ak.attention_core_plain(q, k, v, km, export_weights=True)
+    torch.cuda.synchronize()
+    checks = [output_check(f"out {what} bf16", out, ref_out),
+              (f"head-mean map {what} fp32 (largest {float(ref_map.max()):.3e})",
+               max_err(amap, ref_map), 2e-5)]
+    del ref_out, ref_map
+    ref_st = ak.attention_row_stats_plain(q, k, km)
+    rel = float(((stats - ref_st).abs() / ref_st.abs()).max())
+    checks.append((f"row statistics (max, 1/sum) {what}, relative", rel, 1e-5))
+    del ref_st
+    checks.append((f"map launch {what} from the kernel's statistics",
+                   max_err(amap, ak.attention_map_plain(q, k, km, stats)), 2e-5))
+    _, again = ak.attention_core(q, k, v, km, export_weights=True)
+    same = bool(torch.equal(amap, again))
+    print(f"[kernel] attention_fwd_export {what}: map bit-equal across two calls: "
+          f"{same}", flush=True)
+    if not same:
+        raise AssertionError(f"attention_fwd_export {what}: the map differs between calls")
+    return checks, {"map_bit_equal_across_calls": same}
+
+
 def check_kernels(reps: int = 10):
     """Phase 3: every kernel against its plain version; returns the
     kernels' records (without launches)."""
     import torch
 
+    from weclip_tpu_torch import kernels
     from weclip_tpu_torch.core import precision
     from weclip_tpu_torch.core.config import ParConfig
     from weclip_tpu_torch.ops import attention_kernels as ak
@@ -339,20 +376,32 @@ def check_kernels(reps: int = 10):
         n = 4 * b * h * l * dh * 2 + b * l * 4       # q, k, v in, out; mask
         return n + (b * l * l * 4 if export else 0)
 
-    src_attn = "weclip_tpu_torch/csrc/attention.cu"
     src_flash = "weclip_tpu_torch/csrc/flash_attention.cu"
 
-    # K1: the frozen blocks' map export, first 8 rows at L=1025 (scale 1)
+    # K1: the frozen blocks' map export, first 8 rows at L=1025 (scale 1):
+    # the output, the map, and each of its two launches (the forward's row
+    # statistics, the map from those statistics) against its plain version
     b, h, l, dh = 8, 12, 1025, 64
     q, k, v = qkv(b, h, l, dh, gen, bf)
     km = token_mask(b, 512)
-    out, amap = ak.attention_core(q, k, v, km, export_weights=True)
-    ref_out, ref_map = ak.attention_core_plain(q, k, v, km, export_weights=True)
-    torch.cuda.synchronize()
-    checks = [output_check(f"out {[b, h, l, dh]} bf16", out, ref_out),
-              (f"head-mean map {[b, l, l]} fp32 (largest "
-               f"{float(ref_map.max()):.3e})", max_err(amap, ref_map), 2e-5)]
-    record("attention_fwd_export", src_attn,
+    checks, k1 = k1_checks(q, k, v, km, f"{[b, h, l, dh]}")
+    # ... past the fp32 kernel's whole-row length limit, with an image whose
+    # keys are partly masked, untimed
+    q2, k2, v2 = qkv(2, 12, 4096, 64, gen, bf)
+    km2 = torch.ones((2, 4096), device="cuda")
+    km2[1, 1500:] = 0.0
+    checks += k1_checks(q2, k2, v2, km2, "[2, 12, 4096, 64]")[0]
+    del q2, k2, v2, km2
+    bias = ak._padded_key_bias(km)
+    stats = torch.empty((b, h, l, 2), device="cuda")
+    amap = torch.empty((b, l, l), device="cuda")
+    ak.attention_core(q, k, v, km, True, stats=stats)
+    stream = torch.cuda.current_stream().cuda_stream
+    k1["map_kernel_ms"] = cuda_ms(lambda: kernels.call(
+        "flash_attention", "attn_map", q.data_ptr(), k.data_ptr(), bias.data_ptr(),
+        stats.data_ptr(), amap.data_ptr(), b, h, l, dh, ctypes.c_float(dh ** -0.5),
+        stream), reps)
+    record("attention_fwd_export", src_flash,
            "weclip_tpu/ops/pallas_attention.py:195 (attention_core_pallas, "
            "export_weights=True; pallas_call :260)",
            checks,
@@ -360,8 +409,11 @@ def check_kernels(reps: int = 10):
            cuda_ms(lambda: ak.attention_core_plain(q, k, v, km, True), reps),
            bound_ms(attn_fwd_bytes(b, h, l, dh, True), 4 * b * h * l * l * dh,
                     "bf16"),
-           None, [[b, h, l, dh]])
-    del out, amap, ref_out, ref_map
+           None, [[b, h, l, dh], [2, 12, 4096, 64]], timed_shape=f"{[b, h, l, dh]}",
+           fp32_source="weclip_tpu_torch/csrc/attention.cu", **k1)
+    print(f"[kernel] attention_fwd_export: map kernel alone "
+          f"{k1['map_kernel_ms']:.4f} ms", flush=True)
+    del amap, stats, bias
 
     # K2 at its five path shapes, each timed beside SDPA with the same
     # boolean key mask; then once past K1's whole-row limit, untimed
@@ -612,7 +664,6 @@ def check_cti_kernels(records, reps: int = 10):
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf = torch.bfloat16
     record = functools.partial(record_kernel, records)
-    src = "weclip_tpu_torch/csrc/cross_attention.cu"
     h, dh = 4, 64
     ones = lambda b, n: torch.ones((b, n), device="cuda")
     vp1, ms1 = cti_masks(16, 512)
@@ -632,8 +683,9 @@ def check_cti_kernels(records, reps: int = 10):
                 for _ in range(2))
         return q.to(dtype), k.to(dtype), v.to(dtype)
 
-    # K6
-    checks, ms_by_shape = [], {}
+    # K6: every CTI shape in both score types, bf16 timed beside SDPA with
+    # the same boolean key mask
+    checks, ms_by_shape, lib_by_shape = [], {}, {}
     for what, b, lq, lk, km in shapes:
         for dtype in (bf, torch.float32):
             q, k, v = qkv_rect(b, lq, lk, dtype)
@@ -646,20 +698,25 @@ def check_cti_kernels(records, reps: int = 10):
             if dtype == bf:
                 ms_by_shape[what] = cuda_ms(lambda: ak.cross_attention_core(q, k, v, km),
                                             reps)
+                mask = km.bool()[:, None, None, :]
+                lib_by_shape[what] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=1.0), reps)
+                print(f"[kernel] cross_attention {what} {[b, h, lq, dh]} x {lk}: "
+                      f"{ms_by_shape[what]:.4f} ms, SDPA {lib_by_shape[what]:.4f} ms",
+                      flush=True)
             del out, ref
     what, b, lq, lk, km = shapes[2]
     q, k, v = qkv_rect(b, lq, lk, bf)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=km.bool()[:, None, None, :], scale=1.0), reps)
     k6_bytes = b * h * (lq * dh * 2 + 2 * lk * dh * 2 + lq * dh * 4) + b * lk * 4
-    record("cross_attention", src,
+    record("cross_attention", "weclip_tpu_torch/csrc/hopper_attention.cu",
            "weclip_tpu/ops/pallas_attention.py:539 (cross_attention_core_pallas; "
            "pallas_call :582)",
            checks, ms_by_shape[what],
            cuda_ms(lambda: ak.cross_attention_core_plain(q, k, v, km), reps),
-           bound_ms(k6_bytes, 4 * b * h * lq * lk * dh, "bf16"), lib_ms,
+           bound_ms(k6_bytes, 4 * b * h * lq * lk * dh, "bf16"), lib_by_shape[what],
            [[s[1], h, s[2], dh, s[3]] for s in shapes],
-           timed_shape=what, ms_by_shape=ms_by_shape)
+           timed_shape=what, ms_by_shape=ms_by_shape, library_ms_by_shape=lib_by_shape,
+           fp32_source="weclip_tpu_torch/csrc/cross_attention.cu")
     del q, k, v
     torch.cuda.empty_cache()
 

@@ -217,3 +217,37 @@ def test_padded_key_bias_masks_the_padding():
     assert torch.equal(bias[:, :70], tak._key_bias(km))
     assert bool((bias[:, 70:] == -1e30).all())
     assert tak._padded_key_bias(torch.ones((1, 64))).shape == (1, 64)
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("score_dtype", [torch.float32, torch.bfloat16])
+def test_k1_row_stats_and_map_plain_compose_to_the_map(score_dtype, dh):
+    """K1's two launches, as their plain versions: the row statistics, then
+    the head-summed map from them, equal attention_core_plain's map (1e-6)
+    and the Pallas export kernel's in interpret mode (2e-5); L 70 is not a
+    whole number of 64-key tiles, one image has masked keys and one has no
+    valid key (its map is exactly 0)."""
+    b, h, l = 3, 2, 70
+    q, k, v, kmask = _qkv_mask(14, b, h, l, dh, n_valid=(70, 33, 0))
+    qt, kt, vt = (torch.from_numpy(x).to(score_dtype) for x in (q, k, v))
+    km = torch.from_numpy(kmask)
+    stats = tak.attention_row_stats_plain(qt, kt, km)
+    amap = tak.attention_map_plain(qt, kt, km, stats)
+    _, ref = tak.attention_core_plain(qt, kt, vt, km, export_weights=True)
+    assert stats.shape == (b, h, l, 2) and stats.dtype == torch.float32
+    np.testing.assert_allclose(amap.numpy(), ref.numpy(), rtol=0, atol=1e-6)
+    assert not amap[2].any()
+    jdt = jnp.float32 if score_dtype == torch.float32 else jnp.bfloat16
+    _, jmap = jpal.attention_core_pallas(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), jnp.asarray(kmask), h,
+        interpret=True, score_dtype=jdt, export_weights=True, out_dtype=jdt)
+    np.testing.assert_allclose(amap.numpy(), np.asarray(jmap, np.float32),
+                               rtol=0, atol=F32_TOL)
+
+
+def test_attention_core_writes_stats_only_from_the_bf16_map_kernel():
+    """``stats`` is an output of the bf16 K1 on CUDA; elsewhere it is
+    refused rather than left unwritten."""
+    q, k, v, kmask = map(torch.from_numpy, _qkv_mask(15, 1, 2, 8, 32, n_valid=(8,)))
+    with pytest.raises(ValueError):
+        tak.attention_core(q, k, v, kmask, stats=torch.empty((1, 2, 8, 2)))

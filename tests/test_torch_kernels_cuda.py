@@ -91,11 +91,11 @@ def test_attention_bwd_kernel_takes_bf16_as_autograd_hands_it(card, l):
         torch.testing.assert_close(a, r, rtol=0, atol=2.0 ** -8 * float(r.abs().max()))
 
 
-def _rect(card, lq, lk, dtype):
-    """q (pre-scaled), k, v at (3, 2, L, 64); key masks: all valid, a third
+def _rect(card, lq, lk, dtype, dh=64):
+    """q (pre-scaled), k, v at (3, 2, L, dh); key masks: all valid, a third
     valid, none valid (a fully masked key row)."""
     g = torch.Generator(device=card).manual_seed(1)
-    b, h, dh = 3, 2, 64
+    b, h = 3, 2
     q = (torch.randn((b, h, lq, dh), generator=g, device=card) * dh ** -0.5).to(dtype)
     k, v = (torch.randn((b, h, lk, dh), generator=g, device=card).to(dtype)
             for _ in range(2))
@@ -122,6 +122,52 @@ def test_cross_attention_kernel_matches_plain(card, dtype, lq, lk):
     assert out.dtype == torch.float32 and not out[2].any()
     tol = 2e-5 if dtype == torch.float32 else _bf16_ulp(float(ref.abs().max()))
     torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("lq,lk", [(3294, 625), (625, 3294)])
+def test_cross_attention_wgmma_kernel_at_ragged_lengths(card, dh, lq, lk):
+    """K6 under bf16 (the wgmma kernel) where neither length is a whole
+    number of 64-row tiles, at both head widths its tensor maps take
+    (128-byte swizzle for Dh 64, 64-byte for Dh 32); one bf16 ulp of the
+    largest output, and exactly 0 for the image with no valid key."""
+    q, k, v, km = _rect(card, lq, lk, torch.bfloat16, dh)
+    before = kernels.launches["cross_attention"]
+    out = ak.cross_attention_core(q, k, v, km)
+    ref = ak.cross_attention_core_plain(q, k, v, km)
+    assert kernels.launches["cross_attention"] == before + 1
+    assert out.dtype == torch.float32 and not out[2].any()
+    torch.testing.assert_close(out, ref, rtol=0, atol=_bf16_ulp(float(ref.abs().max())))
+
+
+def test_attention_fwd_export_takes_long_sequences_bf16(card):
+    """K1 under bf16 keeps no whole score row: L 4096 runs, and its two
+    launches (statistics, then map) each match their plain versions."""
+    q, k, v, km = _qkv(card, 2, 2, 4096, 64, torch.bfloat16, (4096, 1500))
+    before = kernels.launches["attention_fwd_export"]
+    stats = torch.empty((2, 2, 4096, 2), device=card)
+    out, amap = ak.attention_core(q, k, v, km, export_weights=True, stats=stats)
+    assert kernels.launches["attention_fwd_export"] == before + 1
+    ref, ref_map = ak.attention_core_plain(q, k, v, km, export_weights=True)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=_bf16_ulp(float(ref.float().abs().max())))
+    torch.testing.assert_close(amap, ref_map, rtol=0, atol=2e-5)
+    want = ak.attention_row_stats_plain(q, k, km)
+    torch.testing.assert_close(stats, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(amap, ak.attention_map_plain(q, k, km, stats), rtol=0,
+                               atol=2e-5)
+
+
+def test_attention_fwd_export_map_is_deterministic(card):
+    """K1's map is summed over heads in registers, in head order, without
+    atomics: two calls give the same bits."""
+    q, k, v, km = _qkv(card, 3, 12, 1025, 64, torch.bfloat16, (1025, 600, 0))
+    before = kernels.launches["attention_fwd_export"]
+    out1, map1 = ak.attention_core(q, k, v, km, export_weights=True)
+    out2, map2 = ak.attention_core(q, k, v, km, export_weights=True)
+    assert kernels.launches["attention_fwd_export"] == before + 2
+    assert torch.equal(map1, map2) and torch.equal(out1, out2)
+    assert not map1[2].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -166,7 +212,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
                         ParConfig())
     with pytest.raises(ValueError):
         ak.cross_attention_core(q, k[:, :, :8], v[:, :, :8], km[:, :8])   # fp16
-    with pytest.raises(RuntimeError):                        # score rows > smem
+    with pytest.raises(RuntimeError):                        # fp32 K1: score rows > smem
         ak.attention_core(*_qkv(card, 1, 2, 4096, 64, torch.float32, (4096,)))
     # the refused request leaves no error behind for the next launch
     assert np.isfinite(ak.attention_core(*_qkv(card, 1, 2, 16, 64, torch.float32,

@@ -1,5 +1,5 @@
-// Shared helpers of the port's CUDA kernels: bf16 rounding and packing,
-// the bf16 tensor-core product, warp and fragment-row reductions, index
+// Shared helpers of the port's CUDA kernels: bf16 packing, the bf16
+// tensor-core product, warp and fragment-row reductions, index
 // clamping, cp.async copies and ldmatrix loads.
 #pragma once
 
@@ -8,12 +8,6 @@
 #include <stdint.h>
 
 namespace weclip {
-
-// round-to-nearest-even to bf16 and back: the cast the JAX kernels apply
-// to matmul operands under the bf16 policy
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -27,18 +21,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // two floats -> bf16x2 (round to nearest even), the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 // c += a (16x16, row-major fragments) * b (16x8, column fragments)

@@ -1,11 +1,13 @@
 // Key-tiled ("flash") attention on the tensor cores for sm_90a: the bf16
-// forward without the map (K2) and the bf16 backward for any (Lq, Lk) (K3
-// and K3-rect).  Plain C entry points, loaded with ctypes by
-// weclip_tpu_torch/kernels.py; wrappers in ops/attention_kernels.py.  Under
-// the fp32 score type both run cross_attention.cu's FMA kernels.
+// forward (K2, and K1 as that forward plus a map kernel) and the bf16
+// backward for any (Lq, Lk) (K3 and K3-rect).  Plain C entry points,
+// loaded with ctypes by weclip_tpu_torch/kernels.py; wrappers in
+// ops/attention_kernels.py.  Under the fp32 score type K2 and the backward
+// run cross_attention.cu's FMA kernels and K1 attention.cu's.
 //
 // Replaces (weclip_tpu/ops/pallas_attention.py), under bf16:
-//   K2       attention_core_pallas(export_weights=False)  (_attn_kernel; :195, pallas_call :260)
+//   K1       attention_core_pallas(export_weights=True)   (_attn_kernel; :195, pallas_call :260)
+//   K2       attention_core_pallas(export_weights=False)  (the same kernel)
 //   K3       attention_bwd_pallas, Lq == Lk               (_attn_bwd_kernel; :395, pallas_call :441)
 //   K3-rect  attention_bwd_pallas, Lq != Lk               (the same function)
 //
@@ -14,31 +16,42 @@
 // (the wrapper pads it with -1e30 to whole 64-key tiles), the all-masked
 // row guard max(smax, -5e29), denominator >= 1e-30.  Every product runs
 // on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate) with
-// its operands (q, k, v, dO, P, dS) in bf16.  K2 normalizes after P V; the
-// backward takes delta = sum(P * dP) as the plain version does, not
-// rowsum(dO * O).
+// its operands (q, k, v, dO, P, dS) in bf16.  The forward normalizes after
+// P V with P rounded against the running max; the Pallas export path (K1,
+// pallas_attention.py:141-145) normalizes first and then rounds P, so K1's
+// output differs from it by at most one bf16 rounding of P, exactly as K2
+// does (held to one bf16 ulp of the largest |out|).  K1's map is fp32 P
+// from the forward's final (max, 1/sum).  The backward takes delta =
+// sum(P * dP) as the plain version does, not rowsum(dO * O).
 //
 // What bounds them on the H100: operations.  K2 at (8, 12, 1025, 64) does
 // 4*B*H*L^2*Dh = 25.8 GFLOP of products (26 us at the bf16 peak) and moves
-// 25 MB (8 us).  K3 at the GradCAM shape (32, 12, 1025, 64) needs
-// 10*B*H*L^2*Dh = 258 GFLOP (0.26 ms); this design runs 18*B*H*L^2*Dh (nine
-// products where five are the minimum: S and dP three times each, for the
-// row statistics, for dQ and for dK/dV), the price of determinism without
-// atomics.
+// 25 MB (8 us).  K1 adds the (B, L, L) fp32 map (34 MB, 10 us) and its
+// map kernel recomputes S (12.9 GFLOP) and one exp per score and head.  K3
+// at the GradCAM shape (32, 12, 1025, 64) needs 10*B*H*L^2*Dh = 258 GFLOP
+// (0.26 ms); this design runs 18*B*H*L^2*Dh (nine products where five are
+// the minimum: S and dP three times each, for the row statistics, for dQ
+// and for dK/dV), the price of determinism without atomics.
 //
 // Design.  No block keeps a whole score row: every kernel is one block of
-// 4 warps (16 rows each) per (image, head, 64 rows), and loops over 64-row
-// tiles of the other side, staged bf16 in shared memory with cp.async and
-// double-buffered, so the next tile's loads run under this tile's products.
-// Scores live in mma accumulator registers, and each fragment is reused as
-// the A operand of the next product (P V, dS K, P^T dO, dS^T q) without a
-// trip through shared memory; B operands come from ldmatrix (.trans for
-// the tiles read along keys).  A block needs under 47 KB of shared memory,
-// so several fit on an SM.
+// 4 warps (16 rows each) per (image, head or all heads, 64 rows), and
+// loops over 64-row tiles of the other side (the map kernel: over heads),
+// staged bf16 in shared memory with cp.async and double-buffered, so the
+// next tile's loads run under this tile's products.  Scores live in mma
+// accumulator registers, and each fragment is reused as the A operand of
+// the next product (P V, dS K, P^T dO, dS^T q) without a trip through
+// shared memory; B operands come from ldmatrix (.trans for the tiles read
+// along keys).  A block needs under 47 KB of shared memory, so several fit
+// on an SM, and any L runs.
 // - K2, bf16: one sweep with online softmax; the accumulator is rescaled
-//   when a tile raises the row max (P is rounded to bf16 against the
-//   running max, the plain version against the final max: the outputs
-//   differ by at most one bf16 rounding).
+//   when a tile raises the row max.
+// - K1, bf16: K2's kernel instantiated with a statistics output (each
+//   row's final max and 1/sum; K2's instantiation compiles without it),
+//   then a map kernel per (image, 64 rows, 64 keys) that loops over the
+//   heads in order, recomputes S bit-equal to the forward's, and keeps the
+//   head sum of P in registers: one store of the map, deterministic, no
+//   atomics.  (The TPU kernel summed the map in an output block revisited
+//   across a sequential head axis, which Hopper's unordered blocks cannot.)
 // - K3, bf16: a dQ kernel per 64 query rows makes two sweeps over the keys,
 //   the first for each row's (max, sum, delta) online, the second for
 //   dS = P (dP - delta) and dQ = dS K; it writes (max, 1/sum, delta).  A
@@ -179,11 +192,12 @@ __device__ __forceinline__ void zero(float (&acc)[DH / 8][4]) {
 // 64-key tiles with online softmax
 // ---------------------------------------------------------------------------
 
-template <int DH>
+template <int DH, bool STATS>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
                      const bf* __restrict__ v, const float* __restrict__ kbias,
-                     bf* __restrict__ out, int H, int L, float scale) {
+                     bf* __restrict__ out, float* __restrict__ stats, int H, int L,
+                     float scale) {
   constexpr int QS = DH + 8, KT = DH / 16, NT = DH / 8;
   __shared__ __align__(16) bf q_s[kRows * QS];
   __shared__ __align__(16) bf k_s[2][kTile * QS];
@@ -284,6 +298,111 @@ flash_fwd_mma_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
     if (row + 8 < L)
       *reinterpret_cast<__nv_bfloat162*>(o + (size_t)(row + 8) * DH + col) =
           __floats2bfloat162_rn(acc[nt][2] * r1, acc[nt][3] * r1);
+  }
+  if (STATS && t == 0) {   // K1: each row's final (max, 1/sum) for the map kernel
+    float* st = stats + (base + row) * 2;
+    if (row < L) { st[0] = m0; st[1] = r0; }
+    if (row + 8 < L) { st[16] = m1; st[17] = r1; }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1, bf16: the head-mean map from flash_fwd_mma_kernel's row statistics.
+// One block per (image, 64 query rows, 64 keys), 16 rows per warp, looping
+// over the heads in order 0..H-1; head h + 1's q rows, key tile and
+// statistics are copied (cp.async) while head h's S = q K^T is recomputed
+// exactly as the forward computes it (same staging, fragments and mma
+// order, so each score is bit-equal and P <= 1/sum), and P = exp(s - max) *
+// (1/sum) is added to a head sum held in registers
+// ---------------------------------------------------------------------------
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+attn_map_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
+                const float* __restrict__ kbias, const float* __restrict__ stats,
+                float* __restrict__ map, int H, int L, float scale) {
+  constexpr int QS = DH + 8, KT = DH / 16;
+  static_assert(kRows == kTile && kThreads == 2 * kRows,
+                "q rows are staged as a key tile; one statistic per thread");
+  __shared__ __align__(16) bf q_s[2][kRows * QS];
+  __shared__ __align__(16) bf k_s[2][kTile * QS];
+  __shared__ __align__(16) float st_s[2][kRows * 2];
+  __shared__ __align__(16) float b_s[kTile];
+
+  const int b = blockIdx.z, q0 = blockIdx.y * kRows, j0 = blockIdx.x * kTile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = min(kRows, L - q0), nk = min(kTile, L - j0);
+
+  auto stage = [&](int h) {
+    const size_t base = ((size_t)b * H + h) * L;
+    const int s = h & 1;
+    async_tile<DH>(q_s[s], q + (base + q0) * DH, nq, tid);
+    async_tile<DH>(k_s[s], k + (base + j0) * DH, nk, tid);
+    // rows past L get zero statistics (their map entries are not stored)
+    const bool in = tid < nq * 2;
+    cp_async4(st_s[s] + tid, stats + (base + q0) * 2 + (in ? tid : 0), in ? 4 : 0);
+    cp_async_commit();
+  };
+  // the key bias (padded to whole tiles) is the same for every head
+  if (tid < kTile / 4) cp_async16(b_s + 4 * tid, kbias + (size_t)b * padded(L) + j0 + 4 * tid, 16);
+  stage(0);
+
+  float acc[kTile / 16][2][4];
+#pragma unroll
+  for (int kc = 0; kc < kTile / 16; ++kc)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) acc[kc][hh][0] = acc[kc][hh][1] = acc[kc][hh][2] = acc[kc][hh][3] = 0.f;
+  for (int h = 0; h < H; ++h) {
+    const int s = h & 1;
+    if (h + 1 < H) {
+      stage(h + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    scale_tile<DH>(q_s[s], scale, tid);   // bf16(float(q) * scale), as the forward stages q
+    __syncthreads();
+    uint32_t qa[KT][4];
+    load_a<DH>(qa, q_s[s], warp * 16, lane);
+    const float* st = st_s[s] + (warp * 16 + g) * 2;
+    const float m0 = st[0], r0 = st[1], m1 = st[16], r1 = st[17];
+#pragma unroll
+    for (int kc = 0; kc < kTile / 16; ++kc) {
+      float sc[2][4];
+      product16<DH>(sc, qa, k_s[s], kc * 16, lane);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float b0 = b_s[kc * 16 + hh * 8 + 2 * t], b1 = b_s[kc * 16 + hh * 8 + 2 * t + 1];
+        acc[kc][hh][0] += expf((sc[hh][0] + b0) - m0) * r0;
+        acc[kc][hh][1] += expf((sc[hh][1] + b1) - m0) * r0;
+        acc[kc][hh][2] += expf((sc[hh][2] + b0) - m1) * r1;
+        acc[kc][hh][3] += expf((sc[hh][3] + b1) - m1) * r1;
+      }
+    }
+    __syncthreads();
+  }
+  const float inv_h = 1.f / (float)H;
+  float* dst = map + (size_t)b * L * L;
+#pragma unroll
+  for (int kc = 0; kc < kTile / 16; ++kc) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int col = j0 + kc * 16 + hh * 8 + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = q0 + warp * 16 + g + 8 * half;
+        if (row >= L) continue;
+        float* p = dst + (size_t)row * L + col;
+        const float x0 = acc[kc][hh][2 * half] * inv_h, x1 = acc[kc][hh][2 * half + 1] * inv_h;
+        if (!(L & 1) && col + 1 < L) {   // even L: (row * L + col) is even, 8-byte aligned
+          *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+        } else {
+          if (col < L) p[0] = x0;
+          if (col + 1 < L) p[1] = x1;
+        }
+      }
+    }
   }
 }
 
@@ -516,9 +635,21 @@ flash_bwd_dkdv_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
 
 template <int DH>
 cudaError_t launch_fwd(const bf* q, const bf* k, const bf* v, const float* kbias, bf* out,
-                       int B, int H, int L, float scale, cudaStream_t s) {
-  flash_fwd_mma_kernel<DH><<<dim3((L + kRows - 1) / kRows, B * H), kThreads, 0, s>>>(
-      q, k, v, kbias, out, H, L, scale);
+                       float* stats, int B, int H, int L, float scale, cudaStream_t s) {
+  const dim3 grid((L + kRows - 1) / kRows, B * H);
+  if (stats)
+    flash_fwd_mma_kernel<DH, true><<<grid, kThreads, 0, s>>>(q, k, v, kbias, out, stats, H, L, scale);
+  else
+    flash_fwd_mma_kernel<DH, false><<<grid, kThreads, 0, s>>>(q, k, v, kbias, out, nullptr, H,
+                                                               L, scale);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_map(const bf* q, const bf* k, const float* kbias, const float* stats,
+                       float* map, int B, int H, int L, float scale, cudaStream_t s) {
+  const int n = (L + kRows - 1) / kRows;
+  attn_map_kernel<DH><<<dim3(n, n, B), kThreads, 0, s>>>(q, k, kbias, stats, map, H, L, scale);
   return cudaGetLastError();
 }
 
@@ -537,16 +668,34 @@ cudaError_t launch_bwd(const bf* q, const bf* k, const bf* v, const bf* dout,
 
 }  // namespace
 
-// K2, bf16: q (unscaled), k, v (B, H, L, Dh); kbias (B, L rounded up to
-// 64) fp32, -1e30 in the padding; out (B, H, L, Dh) bf16
+// K2 and K1's first launch, bf16: q (unscaled), k, v (B, H, L, Dh); kbias
+// (B, L rounded up to 64) fp32, -1e30 in the padding; out (B, H, L, Dh)
+// bf16; stats, null for K2, else (B, H, L, 2) fp32 for each row's (max,
+// 1/sum)
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* kbias,
-                         void* out, int B, int H, int L, int Dh, float scale, void* stream) {
+                         void* out, void* stats, int B, int H, int L, int Dh, float scale,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto c = [](const void* p) { return static_cast<const bf*>(p); };
   const float* kb = static_cast<const float*>(kbias);
   bf* o = static_cast<bf*>(out);
-  if (Dh == 64) return launch_fwd<64>(c(q), c(k), c(v), kb, o, B, H, L, scale, s);
-  if (Dh == 32) return launch_fwd<32>(c(q), c(k), c(v), kb, o, B, H, L, scale, s);
+  float* st = static_cast<float*>(stats);
+  if (Dh == 64) return launch_fwd<64>(c(q), c(k), c(v), kb, o, st, B, H, L, scale, s);
+  if (Dh == 32) return launch_fwd<32>(c(q), c(k), c(v), kb, o, st, B, H, L, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// K1's second launch, bf16: q (unscaled), k (B, H, L, Dh); kbias as above;
+// stats from flash_fwd; map (B, L, L) fp32, the mean over heads of P
+extern "C" int attn_map(const void* q, const void* k, const void* kbias, const void* stats,
+                        void* map, int B, int H, int L, int Dh, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto c = [](const void* p) { return static_cast<const bf*>(p); };
+  const float* kb = static_cast<const float*>(kbias);
+  const float* st = static_cast<const float*>(stats);
+  float* m = static_cast<float*>(map);
+  if (Dh == 64) return launch_map<64>(c(q), c(k), kb, st, m, B, H, L, scale, s);
+  if (Dh == 32) return launch_map<32>(c(q), c(k), kb, st, m, B, H, L, scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  The build
 happens at first use (or up front through ``build()``, which starts one
 ``nvcc`` per source, all at once) into ``_build/`` beside this file; a
-library is named after a hash of its source and flags, so an edited source
-is rebuilt.  Every C entry point returns ``cudaGetLastError()`` after its
-launches, and ``call`` raises on anything but 0.
+library is named after a hash of its source, the headers it includes and
+the flags, so an edited source or header is rebuilt.  Every C entry point
+returns ``cudaGetLastError()`` after its launches, and ``call`` raises on
+anything but 0.
 
 ``launches`` counts kernel launches by kernel name.  Only the wrappers in
 ``ops/attention_kernels.py`` and ``refine/par_kernels.py`` add to it, at the
@@ -18,36 +19,45 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Set
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+_INCLUDE = re.compile(r'\s*#\s*include\s+"([^"]+)"')
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every function returns the cudaError_t of its launches
 SIGNATURES = {
     "attention": {
-        # q, k, v, kbias, out, map, B, H, L, Dh, scale, bf16, stream
-        "attn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        # fp32 q, k, v, kbias, out, map, B, H, L, Dh, scale, stream
+        "attn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     },
     "flash_attention": {
-        # bf16 q, k, v, kbias (padded to 64 keys), out, B, H, L, Dh, scale,
-        # stream
-        "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        # bf16 q, k, v, kbias (padded to 64 keys), out, stats (or None), B,
+        # H, L, Dh, scale, stream
+        "flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        # bf16 q, k, kbias (padded), stats, map, B, H, L, Dh, scale, stream
+        "attn_map": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
         # q, k, v, do (bf16), kbias (padded), dq, dk, dv, stats, B, H, Lq,
         # Lk, Dh, scale, stream
         "flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _F, _P],
     },
+    "hopper_attention": {
+        # bf16 q (pre-scaled), k, v, kbias (padded), fp32 out, B, H, Lq, Lk,
+        # Dh, stream
+        "xattn_fwd_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
     "cross_attention": {
-        # q(pre-scaled), k, v, kbias, out, B, H, Lq, Lk, Dh, bf16, stream
-        "xattn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # fp32 q (pre-scaled), k, v, kbias, out, B, H, Lq, Lk, Dh, stream
+        "xattn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         # fp32 q(pre-scaled), k, v, do, kbias, dq, dk, dv, stats, B, H, Lq,
         # Lk, Dh, stream
         "xattn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -90,12 +100,29 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _headers(path: Path, seen: Set[Path]) -> None:
+    """Add to ``seen`` every header under csrc/ that ``path`` includes, at
+    any depth (``#include "..."``)."""
+    for line in path.read_text().splitlines():
+        m = _INCLUDE.match(line)
+        if m:
+            hdr = _CSRC / m.group(1)
+            if hdr.exists() and hdr not in seen:
+                seen.add(hdr)
+                _headers(hdr, seen)
+
+
 def _lib_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    common = (_CSRC / "common.cuh").read_bytes()
-    digest = hashlib.sha256(src + common + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library's path, named after a hash of the source, every header
+    it includes, and the flags."""
+    src = _CSRC / f"{name}.cu"
+    headers: Set[Path] = set()
+    _headers(src, headers)
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(headers):
+        h.update(hdr.name.encode() + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

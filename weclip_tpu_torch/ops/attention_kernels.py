@@ -13,11 +13,16 @@ Each wrapper sits beside its plain PyTorch version:
   ``custom_vjp`` _cross_core_fused).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel or raises.  Sources: K1 ``csrc/attention.cu`` (whole
-score rows in shared memory, for the head sum of the map); K2, K3 and
-K3-rect under bf16, ``csrc/flash_attention.cu`` (key-tiled, any length; K3
-reads bf16 q, k, v and dO as they come and scales q as it stages it); K6,
-and K2 and the backward under fp32 (FMA loops), ``csrc/cross_attention.cu``.  The TPU stream padding
+launches its kernel or raises.  Sources, under bf16: K1, K2, K3 and K3-rect
+``csrc/flash_attention.cu`` (key-tiled, any length; K1 is K2's forward
+with each row's (max, 1/sum) written out, then a map kernel that sums P
+over the heads, ``attention_row_stats_plain`` and ``attention_map_plain``
+being the two launches' plain versions; K3 reads bf16 q, k, v and dO as they
+come and scales q as it stages it); K6 ``csrc/hopper_attention.cu``
+(``wgmma`` products on TMA-loaded tiles).  Under fp32 (FMA loops, for the
+fp32 policy's parity checks): K1 ``csrc/attention.cu`` (whole score rows in
+shared memory, which bound L); K2, K6 and the backward
+``csrc/cross_attention.cu``.  The TPU stream padding
 (``stream_pad_len``/``pad_stream``, and CoMer's 128-multiples) is not
 ported: the kernels run at the true sequence lengths.
 """
@@ -65,6 +70,15 @@ def _check_cuda(name: str, kmask: torch.Tensor, *tensors: torch.Tensor) -> None:
 # K1 / K2: forward
 # ---------------------------------------------------------------------------
 
+def _scores(q: torch.Tensor, k: torch.Tensor, kmask: torch.Tensor) -> torch.Tensor:
+    """fp32 S = bf16-or-fp32(q * Dh^-0.5) K^T + key bias, (B, H, L, L): the
+    scores of the Pallas ``_attn_kernel`` in q's score dtype."""
+    sd = q.dtype
+    qs = (q.float() * q.shape[-1] ** -0.5).to(sd).float()
+    scores = torch.matmul(qs, k.to(sd).float().transpose(-1, -2))
+    return scores + _key_bias(kmask)[:, None, None, :]
+
+
 def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kmask: torch.Tensor, export_weights: bool = True
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -72,11 +86,7 @@ def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, L) {0,1}.  Returns (out (B, H, L, Dh) in q's dtype, head-mean map
     (B, L, L) fp32 or None).  Arithmetic of the Pallas ``_attn_kernel``."""
     sd = q.dtype
-    dh, h = q.shape[-1], q.shape[1]
-    scale = dh ** -0.5
-    qs = (q.float() * scale).to(sd).float()
-    scores = torch.matmul(qs, k.to(sd).float().transpose(-1, -2))
-    scores = scores + _key_bias(kmask)[:, None, None, :]
+    scores = _scores(q, k, kmask)
     smax = scores.amax(dim=-1, keepdim=True).clamp_min(-5e29)
     ex = torch.exp(scores - smax)
     recip = 1.0 / ex.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -87,16 +97,43 @@ def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (ov * recip).to(sd), None
     attn = ex * recip
     out = torch.matmul(attn.to(sd).float(), vs).to(sd)
-    return out, attn.sum(dim=1) * (1.0 / h)
+    return out, attn.sum(dim=1) * (1.0 / q.shape[1])
+
+
+def attention_row_stats_plain(q: torch.Tensor, k: torch.Tensor,
+                              kmask: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1's first launch's statistics: each query row's
+    (max score, clamped at -5e29; 1 / sum of exp(s - max), the sum clamped
+    at 1e-30), (B, H, L, 2) fp32.  q, k as for ``attention_core_plain``."""
+    scores = _scores(q, k, kmask)
+    smax = scores.amax(dim=-1, keepdim=True).clamp_min(-5e29)
+    recip = 1.0 / torch.exp(scores - smax).sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return torch.cat([smax, recip], dim=-1)
+
+
+def attention_map_plain(q: torch.Tensor, k: torch.Tensor, kmask: torch.Tensor,
+                        stats: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1's map launch: the mean over heads of P =
+    exp(s - max) * (1/sum) from the (B, H, L, 2) row ``stats``, (B, L, L)
+    fp32."""
+    p = torch.exp(_scores(q, k, kmask) - stats[..., :1]) * stats[..., 1:]
+    return p.sum(dim=1) * (1.0 / q.shape[1])
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   kmask: torch.Tensor, export_weights: bool = True
+                   kmask: torch.Tensor, export_weights: bool = True,
+                   stats: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K1 (``export_weights=True``) / K2 on CUDA; the plain version on CPU.
-    K1 keeps its score rows in shared memory, which bounds L (about 1500
-    under bf16): the C side reports a larger L as a CUDA error, which
-    ``kernels.call`` raises.  K2 takes any L."""
+    Under bf16 both take any L, and K1 is two launches: K2's forward with
+    each row's (max, 1/sum) written out, then the map kernel.  ``stats``, a
+    (B, H, L, 2) fp32 CUDA buffer, receives those statistics (bf16 K1 only).
+    Under fp32, K1 keeps whole score rows in shared memory, which bounds L
+    (about 1650): the C side reports a longer L as a CUDA error, which
+    ``kernels.call`` raises."""
+    if stats is not None and not (q.is_cuda and export_weights
+                                  and q.dtype == torch.bfloat16):
+        raise ValueError("attention_core: stats are written by the bf16 K1 on CUDA only")
     if not q.is_cuda:
         return attention_core_plain(q, k, v, kmask, export_weights)
     _check_cuda("attention_core", kmask, q, k, v)
@@ -110,32 +147,43 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dh not in (32, 64):
         raise ValueError(f"attention_core: head dim {dh} not in (32, 64)")
     out = torch.empty_like(q)
+    amap = (torch.empty((b, l, l), device=q.device, dtype=torch.float32)
+            if export_weights else None)
     scale, bf16 = dh ** -0.5, q.dtype == torch.bfloat16
+    c_scale = ctypes.c_float(scale)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if export_weights:
-            bias = _key_bias(kmask).contiguous()
-            amap = torch.empty((b, l, l), device=q.device, dtype=torch.float32)
-            kernels.call("attention", "attn_fwd", q.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                         amap.data_ptr(), b, h, l, dh, ctypes.c_float(scale),
-                         int(bf16), stream)
-            kernels.launches["attention_fwd_export"] += 1
-            return out, amap
         if bf16:
+            if export_weights and stats is None:
+                stats = torch.empty((b, h, l, 2), device=q.device, dtype=torch.float32)
+            elif stats is not None and (
+                    tuple(stats.shape) != (b, h, l, 2) or stats.dtype != torch.float32
+                    or stats.device != q.device or not stats.is_contiguous()):
+                raise ValueError("attention_core: stats must be a contiguous "
+                                 "(B, H, L, 2) fp32 tensor on q's device")
             bias = _padded_key_bias(kmask)
             kernels.call("flash_attention", "flash_fwd", q.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, l, dh,
-                         ctypes.c_float(scale), stream)
+                         v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                         None if stats is None else stats.data_ptr(), b, h, l, dh,
+                         c_scale, stream)
+            if export_weights:
+                kernels.call("flash_attention", "attn_map", q.data_ptr(), k.data_ptr(),
+                             bias.data_ptr(), stats.data_ptr(), amap.data_ptr(), b, h,
+                             l, dh, c_scale, stream)
+        elif export_weights:
+            bias = _key_bias(kmask).contiguous()
+            kernels.call("attention", "attn_fwd", q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                         amap.data_ptr(), b, h, l, dh, c_scale, stream)
         else:
             # the FMA forward K6 runs under fp32, on the pre-scaled q
             qs = q * scale
             bias = _key_bias(kmask).contiguous()
             kernels.call("cross_attention", "xattn_fwd", qs.data_ptr(), k.data_ptr(),
                          v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, l, l,
-                         dh, 0, stream)
-    kernels.launches["attention_fwd"] += 1
-    return out, None
+                         dh, stream)
+    kernels.launches["attention_fwd_export" if export_weights else "attention_fwd"] += 1
+    return out, amap
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +299,7 @@ def cross_attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def cross_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kmask: torch.Tensor) -> torch.Tensor:
     """K6 on CUDA; the plain version on CPU.  q, k, v share the score dtype
-    (bf16: tensor-core products; fp32: FMA loops)."""
+    (bf16: the wgmma kernel of csrc/hopper_attention.cu; fp32: FMA loops)."""
     if not q.is_cuda:
         return cross_attention_core_plain(q, k, v, kmask)
     _check_cuda("cross_attention_core", kmask, q, k, v)
@@ -268,13 +316,19 @@ def cross_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"cross_attention_core: kmask {tuple(kmask.shape)} != {(b, lk)}")
     if dh not in (32, 64):
         raise ValueError(f"cross_attention_core: head dim {dh} not in (32, 64)")
-    bias = _key_bias(kmask).contiguous()
     out = torch.empty(q.shape, device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        kernels.call("cross_attention", "xattn_fwd", q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, lq, lk,
-                     dh, int(q.dtype == torch.bfloat16), stream)
+        if q.dtype == torch.bfloat16:
+            bias = _padded_key_bias(kmask)
+            kernels.call("hopper_attention", "xattn_fwd_wgmma", q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, lq, lk, dh,
+                         stream)
+        else:
+            bias = _key_bias(kmask).contiguous()
+            kernels.call("cross_attention", "xattn_fwd", q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, lq, lk, dh,
+                         stream)
     kernels.launches["cross_attention"] += 1
     return out
 
