@@ -14,7 +14,9 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
    against its own stated tolerance (K1 also each of its two launches, at
    L 1025 and 4096, and its map bit-equal across two calls; K3 also against
    a float64 evaluation; ``AttentionCoreFn`` and ``CrossAttentionCoreFn``
-   against their kernels and fp32 autograd), timed beside its plain
+   against their kernels and fp32 autograd; K4 and K5 at the eval and
+   training shapes, 21 channels and a 20 x 28 image, with their registers
+   and spills from ``cuobjdump``), timed beside its plain
    version, a PyTorch library call where one computes the same function
    (SDPA at every K2, K3, K3-rect and K6 shape), and the least time the
    card could take (``bound_ms``);
@@ -353,6 +355,35 @@ def k1_checks(q, k, v, km, what: str):
     return checks, {"map_bit_equal_across_calls": same}
 
 
+# PAR's path shapes, timed: (what, B, C, H, W), the eval canvas of
+# pseudo_label_batch(8) at bucket 4 and the training crop at batch 4 (also
+# bucket 4: background plus 4 class channels); and shapes that are checked
+# only: a bucket of 20, an image smaller than the largest dilation
+PAR_SHAPES = [("eval", 8, 5, 512, 512), ("train", 4, 5, 320, 320)]
+PAR_CHECK_SHAPES = [("bucket 20", 2, 21, 128, 160), ("clamp", 1, 21, 20, 28)]
+
+
+def kernel_resources(name: str) -> dict:
+    """Registers, stack and local memory (spills) of each kernel in the
+    built library ``name``, read by ``cuobjdump -res-usage``."""
+    from weclip_tpu_torch import kernels
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-res-usage", str(kernels._lib_path(name))],
+                          check=True, capture_output=True, text=True, timeout=120).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            fn = line[len("Function "):].rstrip(":")
+        elif fn and line.startswith("REG:"):
+            fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
+            out[fn] = {k: int(fields[k]) for k in ("REG", "STACK", "LOCAL")
+                       if fields.get(k, "").isdigit()}
+            print(f"[resources] {name} {fn}: {out[fn]}", flush=True)
+            fn = None
+    return out
+
+
 def check_kernels(reps: int = 10):
     """Phase 3: every kernel against its plain version; returns the
     kernels' records (without launches)."""
@@ -592,40 +623,60 @@ def check_kernels(reps: int = 10):
     del q, k, v, do, do_b, qs
     torch.cuda.empty_cache()
 
-    # K4 / K5: PAR at the eval canvas, 8 images, bucket 4 (5 channels)
+    # K4 / K5: PAR at every shape of the paths, timed (PAR_SHAPES), and at
+    # a bucket of 20 (21 channels, four channel chunks) and an image
+    # smaller than the largest dilation, checked only
     cfg = ParConfig()
-    b, hh, ww, c = 8, 512, 512, 5
     n = 8 * len(cfg.dilations)
-    imgs = torch.randn((b, 3, hh, ww), generator=gen, device="cuda")
-    aff = pk.par_affinity(imgs, cfg)
-    ref = par_plain.par_affinity(imgs, cfg)
-    torch.cuda.synchronize()
     src_par = "weclip_tpu_torch/csrc/par.cu"
+    aff_checks, prop_checks, aff_ms, prop_ms = [], [], {}, {}
+    timed = {s_[0] for s_ in PAR_SHAPES}
+    for what, b, c, hh, ww in PAR_SHAPES + PAR_CHECK_SHAPES:
+        imgs = torch.randn((b, 3, hh, ww), generator=gen, device="cuda")
+        masks = torch.rand((b, c, hh, ww), generator=gen, device="cuda")
+        aff = pk.par_affinity(imgs, cfg)
+        aff_checks.append((f"{what} aff {[b, n, hh, ww]} fp32", max_err(
+            aff, par_plain.par_affinity(imgs, cfg)), 2e-5))
+        kept = masks.clone()
+        got = pk.par_propagate(masks, aff, cfg)
+        prop_checks.append((f"{what} masks {[b, c, hh, ww]} fp32 after {cfg.num_iter} "
+                            f"iterations", max_err(got, par_plain.par_propagate(
+                                masks, aff, cfg)), 2e-5))
+        if not torch.equal(masks, kept):
+            raise AssertionError("par_propagate wrote the caller's masks")
+        if what in timed:
+            aff_ms[what] = cuda_ms(lambda: pk.par_affinity(imgs, cfg), reps)
+            prop_ms[what] = cuda_ms(lambda: pk.par_propagate(masks, aff, cfg),
+                                    max(2, reps // 5))
+            print(f"[kernel] par {[b, c, hh, ww]}: par_affinity {aff_ms[what]:.4f} ms, "
+                  f"par_propagate {prop_ms[what]:.4f} ms ({cfg.num_iter} iterations)",
+                  flush=True)
+        if what == PAR_SHAPES[0][0]:
+            plain_aff = cuda_ms(lambda: par_plain.par_affinity(imgs, cfg), reps)
+            plain_prop = cuda_ms(lambda: par_plain.par_propagate(masks, aff, cfg), 2)
+            eval_bytes = (b * 3 * hh * ww * 4, b * n * hh * ww * 4, b * c * hh * ww * 4)
+            eval_flops = (31 * n * b * hh * ww, cfg.num_iter * 2 * n * b * c * hh * ww)
+        del imgs, masks, aff, got, kept
+    res = kernel_resources("par")
+    what = PAR_SHAPES[0][0]
+    img_b, aff_b, mask_b = eval_bytes
     record("par_affinity", src_par,
            "weclip_tpu/refine/pallas_par.py:210 (par_affinity_pallas; "
            "pallas_call :265)",
-           [(f"aff {[b, n, hh, ww]} fp32", max_err(aff, ref), 2e-5)],
-           cuda_ms(lambda: pk.par_affinity(imgs, cfg), reps),
-           cuda_ms(lambda: par_plain.par_affinity(imgs, cfg), reps),
-           bound_ms(b * 3 * hh * ww * 4 + b * n * hh * ww * 4,
-                    31 * n * b * hh * ww, "fp32"),
-           None, [[b, 3, hh, ww]])
-    del ref
-    masks = torch.rand((b, c, hh, ww), generator=gen, device="cuda")
-    got = pk.par_propagate(masks, aff, cfg)
-    ref = par_plain.par_propagate(masks, aff, cfg)
-    torch.cuda.synchronize()
+           aff_checks, aff_ms[what], plain_aff,
+           bound_ms(img_b + aff_b, eval_flops[0], "fp32"), None,
+           [[s_[1], 3, s_[3], s_[4]] for s_ in PAR_SHAPES + PAR_CHECK_SHAPES],
+           timed_shape=what, ms_by_shape=aff_ms,
+           resources={k: v for k, v in res.items() if "affinity" in k})
+    # each input read once
     record("par_propagate", src_par,
            "weclip_tpu/refine/pallas_par.py:304 (par_refine_pallas; "
            "pallas_call :384)",
-           [(f"masks {[b, c, hh, ww]} fp32 after {cfg.num_iter} iterations",
-             max_err(got, ref), 2e-5)],
-           cuda_ms(lambda: pk.par_propagate(masks, aff, cfg), max(2, reps // 5)),
-           cuda_ms(lambda: par_plain.par_propagate(masks, aff, cfg), 2),
-           bound_ms(b * n * hh * ww * 4 + 2 * b * c * hh * ww * 4,
-                    cfg.num_iter * 2 * n * b * c * hh * ww, "fp32"),
-           None, [[b, c, hh, ww], [b, n, hh, ww]])
-    del imgs, aff, masks, got, ref
+           prop_checks, prop_ms[what], plain_prop,
+           bound_ms(aff_b + 2 * mask_b, eval_flops[1], "fp32"), None,
+           [[s_[1], s_[2], s_[3], s_[4]] for s_ in PAR_SHAPES + PAR_CHECK_SHAPES],
+           timed_shape=what, ms_by_shape=prop_ms,
+           resources={k: v for k, v in res.items() if "propagate" in k})
     torch.cuda.empty_cache()
     return records
 

@@ -187,14 +187,41 @@ def test_attention_bwd_rect_kernel_matches_plain(card, dtype, lq, lk):
         torch.testing.assert_close(a, r, rtol=0, atol=rel * float(r.abs().max()))
 
 
-def test_par_kernels_match_plain(card):
+@pytest.mark.parametrize("b,c,h,w", [
+    (2, 5, 40, 56),       # one tile column, cut rows
+    (3, 5, 77, 131),      # tiles cut at both edges; rows not 16-byte aligned
+    (1, 21, 20, 28),      # dilation 24 exceeds H and W; four channel chunks
+    (1, 1, 512, 512),     # whole tiles, one channel
+])
+def test_par_kernels_match_plain(card, b, c, h, w):
+    """K4 and K5 on 2-D tiles at the full dilations, 3 iterations, against
+    the plain versions at 2e-5; one K5 call counts num_iter launches and
+    leaves the caller's masks untouched."""
     cfg = ParConfig(num_iter=3)
     g = torch.Generator(device=card).manual_seed(0)
-    imgs = torch.randn((2, 3, 40, 56), generator=g, device=card)
+    imgs = torch.randn((b, 3, h, w), generator=g, device=card)
     aff = pk.par_affinity(imgs, cfg)
     torch.testing.assert_close(aff, par_plain.par_affinity(imgs, cfg),
                                rtol=2e-5, atol=2e-5)
-    masks = torch.rand((2, 5, 40, 56), generator=g, device=card)
+    masks = torch.rand((b, c, h, w), generator=g, device=card)
+    before, kept = kernels.launches["par_propagate"], masks.clone()
+    got = pk.par_propagate(masks, aff, cfg)
+    assert kernels.launches["par_propagate"] == before + cfg.num_iter
+    torch.testing.assert_close(got, par_plain.par_propagate(masks, aff, cfg),
+                               rtol=2e-5, atol=2e-5)
+    assert torch.equal(masks, kept)
+
+
+@pytest.mark.parametrize("num_iter", [0, 1, 2])
+def test_par_propagate_iteration_counts(card, num_iter):
+    """The C loop leaves the result in the returned buffer for any count:
+    0 returns the masks, 1 needs no scratch buffer, 2 ends in it after
+    one swap."""
+    cfg = ParConfig(dilations=(1, 2, 4), num_iter=num_iter)
+    g = torch.Generator(device=card).manual_seed(1)
+    imgs = torch.randn((2, 3, 24, 72), generator=g, device=card)
+    masks = torch.rand((2, 3, 24, 72), generator=g, device=card)
+    aff = pk.par_affinity(imgs, cfg)
     torch.testing.assert_close(pk.par_propagate(masks, aff, cfg),
                                par_plain.par_propagate(masks, aff, cfg),
                                rtol=2e-5, atol=2e-5)

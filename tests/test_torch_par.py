@@ -57,6 +57,40 @@ def test_par_refine_matches_pallas(dil, iters, img_hw):
     np.testing.assert_array_equal(auto.numpy(), got.numpy())
 
 
+@pytest.mark.parametrize("b,c,h,w,dil,iters", [
+    (1, 21, 20, 28, (1, 2, 4, 8, 12, 24), 2),   # the clamp reaches past the image
+    (2, 5, 37, 45, (1, 2, 4), 3),                 # ragged
+])
+def test_par_refine_matches_jax_at_tile_edges(b, c, h, w, dil, iters):
+    """The plain par_refine (K4 and K5's oracle) against the JAX XLA
+    par_refine at shapes the tiled kernels must get right: an image smaller
+    than the largest dilation, and sizes that cut tiles at both edges.  The
+    Pallas kernel needs h % 8 == 0, so the XLA formulation is the reference
+    here."""
+    rng = np.random.default_rng(4)
+    imgs = rng.standard_normal((b, 3, h, w)).astype(np.float32)
+    masks = rng.uniform(0, 1, (b, c, h, w)).astype(np.float32)
+    ref = np.asarray(jpar.par_refine(jnp.asarray(imgs), jnp.asarray(masks),
+                                     JParConfig(dilations=dil, num_iter=iters)))
+    tcfg = ParConfig(dilations=dil, num_iter=iters)
+    got = tpar.par_refine(torch.from_numpy(imgs), torch.from_numpy(masks), tcfg)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL)
+    auto = tpar.par_refine_auto(torch.from_numpy(imgs), torch.from_numpy(masks), tcfg)
+    np.testing.assert_array_equal(auto.numpy(), got.numpy())
+
+
+def test_pos_weights_are_computed_once_per_config():
+    """K4's wrapper keeps the positional term per config, as the host array
+    the kernel takes by value, instead of rebuilding it and copying it to
+    the card on every call."""
+    cfg = ParConfig()
+    first = tpk._pos_weights(cfg.dilations, cfg.w1, cfg.w2)
+    np.testing.assert_array_equal(np.asarray(first, np.float32),
+                                  tpar.pos_weights(cfg).numpy())
+    assert tpk._pos_weights(cfg.dilations, cfg.w1, cfg.w2) is first
+    assert len(tpk._pos_weights((1, 2), cfg.w1, cfg.w2)) == 16
+
+
 def test_pos_weights_match_reference():
     """The host positional term of K4 equals the JAX softmax of the
     dilation-scaled offset kernel."""
@@ -90,3 +124,60 @@ def test_upsample_pos_emb_matches_jax():
 def test_par_kernel_wrappers_reject_bad_config():
     with pytest.raises(ValueError):
         tpk._dilations(ParConfig(dilations=tuple(range(1, 8))))
+    with pytest.raises(ValueError):           # wider than the staged halo
+        tpk._dilations(ParConfig(dilations=(1, 32)))
+
+
+def _fma32(a, b, c):
+    """float32 fma(a, b, c), rounded once: a * b is exact in float64, the
+    sum is made exact by TwoSum and rounded to odd, from which the float32
+    rounding is the correct one (53 >= 24 + 2 bits)."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = c.astype(np.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(np.int64) & 1) == 0
+    s = np.where((err != 0) & even, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
+def _div_by(x, y, r):
+    """csrc/par.cu's div_by: q = x * r, then one fma correction step."""
+    q = x * r
+    return _fma32(_fma32(-q, y, x), r, q)
+
+
+def test_fma32_emulation_is_exact():
+    # (1 + 2^-23)(1 - 2^-24) - 1: rounding the product first gives 0;
+    # (1 + 2^-12)^2 + 2^-80 lies just above a float32 midpoint, which
+    # rounding the float64 sum first lands on and then rounds to even, down
+    a = np.array([1 + 2 ** -23, 1 + 2 ** -12], np.float32)
+    b = np.array([1 - 2 ** -24, 1 + 2 ** -12], np.float32)
+    c = np.array([-1, 2 ** -80], np.float32)
+    want = np.array([2 ** -24 - 2 ** -47, 1 + 2 ** -11 + 2 ** -23], np.float32)
+    assert float(want[0]) == 2 ** -24 - 2 ** -47
+    np.testing.assert_array_equal(_fma32(a, b, c), want)
+
+
+def test_par_affinity_division_rounds_as_ieee():
+    """K4 divides by 3 (the RGB mean of the logits) and by the softmax sum
+    (in [1, 48]; the dividend, one of its terms, in (0, sum]) as div_by,
+    from the correctly rounded reciprocal: the quotient must be the IEEE
+    x / y.  By 3: every float32 mantissa of one binade (the quotient's
+    mantissa does not depend on x's exponent while it stays normal); by the
+    sum: random pairs over every binade of [1, 64)."""
+    y3 = np.float32(3)
+    r3 = np.float32(1) / y3
+    mant = np.arange(1 << 23, dtype=np.int64)
+    for part in np.array_split(mant, 4):
+        x = -((part + (127 << 23)).astype(np.int32).view(np.float32))   # [-2, -1)
+        np.testing.assert_array_equal(_div_by(x, y3, r3), x / y3)
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        y = (2.0 ** rng.integers(0, 6, 1 << 20)
+             * rng.uniform(1, 2, 1 << 20)).astype(np.float32)
+        y = np.minimum(y, np.float32(48))
+        x = (y * np.exp2(-rng.uniform(0, 100, y.size))).astype(np.float32)
+        r = np.float32(1) / y
+        np.testing.assert_array_equal(_div_by(x, y, r), x / y)

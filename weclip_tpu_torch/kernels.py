@@ -64,10 +64,12 @@ SIGNATURES = {
                       _I, _P],
     },
     "par": {
-        # img, aff, posw, B, H, W, dilations, n_dil, w1, stream
+        # img, aff, posw (host memory: the C side copies the 8 * n_dil
+        # floats into the kernel's arguments), B, H, W, dilations, n_dil,
+        # w1, stream
         "par_affinity": [_P, _P, _P, _I, _I, _I, _P, _I, _F, _P],
-        # src, dst, aff, B, C, H, W, dilations, n_dil, stream
-        "par_propagate": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+        # src, dst, tmp, aff, B, C, H, W, dilations, n_dil, num_iter, stream
+        "par_propagate": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
     },
 }
 
