@@ -31,11 +31,31 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
    timed steps, finite losses, every parameter moved, every CoMer leaf a
    nonzero gradient; then one fp32 step at batch 1 on the card and on the
    CPU (pseudo labels, loss, gradients, update);
-7. one ``{"kernels": [...]}`` line, then as the last line
+7. K5 also at (1, 81, 512, 512), a COCO pseudo label without class ids
+   (81 channels in 14 chunks), timed beside its bound and its plain
+   version (in phase 3); then that pseudo label itself
+   (``configs/coco.yaml``, fp32) on the card and on the CPU, label
+   agreement at least 99%;
+8. the training loop (``train/trainer.py::train``, ``configs/voc.yaml``,
+   crop 320, batch 4) for 6 steps over 16 random crops through the
+   ``PrefetchLoader``, validating on 8 labelled VOC-size images and saving
+   a checkpoint every 3 steps and at the end; then 3 steps and a resumed
+   run to 6, whose parameters must equal the uninterrupted run's; a timed
+   validation, checkpoint save and restore, and loader batch;
+9. ``WeCLIPPipeline(model_path=<the step-6 checkpoint>)`` segments as a
+   pipeline given the same parameters through ``weights``;
+10. ``Evaluator.run`` msc-flip over 8 labelled VOC-size images
+   (``Config()``): warm images/s, idle share, mIoU, histogram totals equal
+   to the labelled pixels; on 2 of them fp32 card against CPU, msc
+   predictions agreeing on at least 99% of the labelled pixels;
+11. two ``seg_step`` steps (crop 320, batch 4): finite losses, every
+   parameter moved; one fp32 step at batch 1 on the card and the CPU,
+   losses within 1e-4;
+12. one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counters are reset just before each call of phases 4-6 and read just
-after it; every kernel must have launched on that main path.
+Launch counters are reset just before each call of phases 4-11 and read
+just after it; every kernel must have launched on that main path.
 """
 
 from __future__ import annotations
@@ -359,7 +379,8 @@ def k1_checks(q, k, v, km, what: str):
 # pseudo_label_batch(8) at bucket 4 and the training crop at batch 4 (also
 # bucket 4: background plus 4 class channels); and shapes that are checked
 # only: a bucket of 20, an image smaller than the largest dilation
-PAR_SHAPES = [("eval", 8, 5, 512, 512), ("train", 4, 5, 320, 320)]
+PAR_SHAPES = [("eval", 8, 5, 512, 512), ("train", 4, 5, 320, 320),
+              ("coco 81", 1, 81, 512, 512)]
 PAR_CHECK_SHAPES = [("bucket 20", 2, 21, 128, 160), ("clamp", 1, 21, 20, 28)]
 
 
@@ -623,9 +644,10 @@ def check_kernels(reps: int = 10):
     del q, k, v, do, do_b, qs
     torch.cuda.empty_cache()
 
-    # K4 / K5: PAR at every shape of the paths, timed (PAR_SHAPES), and at
-    # a bucket of 20 (21 channels, four channel chunks) and an image
-    # smaller than the largest dilation, checked only
+    # K4 / K5: PAR at every shape of the paths, timed (PAR_SHAPES: eval,
+    # training, and a COCO pseudo label without class ids, 81 channels in
+    # 14 chunks), and at a bucket of 20 (21 channels, four channel chunks)
+    # and an image smaller than the largest dilation, checked only
     cfg = ParConfig()
     n = 8 * len(cfg.dilations)
     src_par = "weclip_tpu_torch/csrc/par.cu"
@@ -656,10 +678,26 @@ def check_kernels(reps: int = 10):
             plain_prop = cuda_ms(lambda: par_plain.par_propagate(masks, aff, cfg), 2)
             eval_bytes = (b * 3 * hh * ww * 4, b * n * hh * ww * 4, b * c * hh * ww * 4)
             eval_flops = (31 * n * b * hh * ww, cfg.num_iter * 2 * n * b * c * hh * ww)
+        if what == "coco 81":
+            # each input read once: affinities, masks in, masks out
+            cb = bound_ms(b * n * hh * ww * 4 + 2 * b * c * hh * ww * 4,
+                          cfg.num_iter * 2 * n * b * c * hh * ww, "fp32")
+            coco = {"shape": [b, c, hh, ww], "num_iter": cfg.num_iter,
+                    "ms": prop_ms[what], "bound_ms": cb[0], "bound_by": cb[1],
+                    "plain_ms": cuda_ms(lambda: par_plain.par_propagate(masks, aff, cfg), 2),
+                    "max_abs_err": prop_checks[-1][1],
+                    "chunks": -(-c // 6)}
         del imgs, masks, aff, got, kept
     res = kernel_resources("par")
     what = PAR_SHAPES[0][0]
     img_b, aff_b, mask_b = eval_bytes
+    # per channel of one image against the 5-channel eval shape's
+    eb, ec = PAR_SHAPES[0][1:3]
+    coco["ms_per_channel_vs_eval"] = (coco["ms"] / coco["shape"][1]) / (prop_ms[what] / (eb * ec))
+    print(f"[kernel] par_propagate {coco['shape']} ({coco['chunks']} chunks), "
+          f"{cfg.num_iter} iterations: {coco['ms']:.4f} ms, plain {coco['plain_ms']:.4f} ms, "
+          f"bound {coco['bound_ms']:.4f} ms ({coco['bound_by']}); per channel "
+          f"{coco['ms_per_channel_vs_eval']:.3f}x the eval shape's", flush=True)
     record("par_affinity", src_par,
            "weclip_tpu/refine/pallas_par.py:210 (par_affinity_pallas; "
            "pallas_call :265)",
@@ -675,7 +713,7 @@ def check_kernels(reps: int = 10):
            prop_checks, prop_ms[what], plain_prop,
            bound_ms(aff_b + 2 * mask_b, eval_flops[1], "fp32"), None,
            [[s_[1], s_[2], s_[3], s_[4]] for s_ in PAR_SHAPES + PAR_CHECK_SHAPES],
-           timed_shape=what, ms_by_shape=prop_ms,
+           timed_shape=what, ms_by_shape=prop_ms, coco_81=coco,
            resources={k: v for k, v in res.items() if "propagate" in k})
     torch.cuda.empty_cache()
     return records
@@ -1139,6 +1177,376 @@ def compare_fp32_step(cfg, params):
             "fp32_grad_leaf_rel_err": grad_rel, "fp32_params_close_share": close}
 
 
+COCO_CONFIG = "configs/coco.yaml"
+VOC_CONFIG = "configs/voc.yaml"
+
+
+def run_coco_pseudo_label():
+    """Phase 7: a COCO pseudo label without class ids (81 classes, so PAR
+    refines 81 channels) at full width, fp32, on the card and on the CPU
+    (plain versions); label agreement at least 0.99.  Returns launches of
+    the card's call and the measurements."""
+    import torch
+
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.api import WeCLIPPipeline
+    from weclip_tpu_torch.core.config import load_config
+
+    cfg = load_config(COCO_CONFIG)
+    im = voc_images(1, seed=4)[0][0]
+    pipe = WeCLIPPipeline(cfg, device="cuda", precision_name="float32", seed=0)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    lab_gpu = pipe.pseudo_label(im)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"coco_pseudo_label": dict(kernels.launches)}
+    del pipe
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lab_cpu = WeCLIPPipeline(cfg, device="cpu", precision_name="float32",
+                             seed=0).pseudo_label(im)
+    cpu_s = time.perf_counter() - t0
+    agree = float((lab_gpu == lab_cpu).mean())
+    print(f"[coco] pseudo_label without class ids on {im.shape[:2]}, 81 classes, fp32: "
+          f"card {card_ms:.1f} ms (first call), CPU {cpu_s:.1f} s; label agreement "
+          f"{agree:.6f} (need >= 0.99); classes on the card "
+          f"{sorted(np.unique(lab_gpu).tolist())[:12]}; launches "
+          f"{json.dumps(launches['coco_pseudo_label'])}", flush=True)
+    if lab_gpu.shape != im.shape[:2] or agree < 0.99:
+        raise AssertionError(f"COCO pseudo labels: shape {lab_gpu.shape}, agreement {agree}")
+    return launches, {"card_first_call_ms": card_ms, "cpu_s": cpu_s, "agreement": agree}
+
+
+def labelled_voc_examples(n: int, seed: int, num_classes: int = 21):
+    """``n`` synthetic VOC-size examples for ``Evaluator.run``: random
+    pixels, a label of 2-3 rectangles of random classes on background, a
+    strip of ignore, and the class set of the label."""
+    rng = np.random.default_rng(seed)
+    ims, _ = voc_images(n, seed)
+    out = []
+    for i, im in enumerate(ims):
+        oh, ow = im.shape[:2]
+        label = np.zeros((oh, ow), np.int32)
+        for _ in range(int(rng.integers(2, 4))):
+            y0, x0 = int(rng.integers(0, oh // 2)), int(rng.integers(0, ow // 2))
+            label[y0:y0 + oh // 3, x0:x0 + ow // 3] = int(rng.integers(1, num_classes))
+        label[-8:] = 255
+        ids = np.unique(label)
+        present = np.zeros(num_classes - 1, bool)
+        present[ids[(ids > 0) & (ids < num_classes)] - 1] = True
+        out.append({"name": f"syn{i}", "img_raw": im, "label": label,
+                    "present_mask": present})
+    return out
+
+
+def run_train_loop(steps: int = 6, every: int = 3):
+    """Phase 8: ``train/trainer.py::train`` at full width
+    (``configs/voc.yaml``: crop 320, batch 4), 16 random crops through the
+    PrefetchLoader, 8 labelled VOC-size images for validation, a checkpoint
+    and a validation every ``every`` steps and a final checkpoint; then
+    ``every`` steps, and a resumed run to ``steps``, whose parameters must
+    equal the uninterrupted run's.  Times a validation, a checkpoint save
+    and restore and the loader's batches.  Phase 9 (a pipeline built from
+    the last checkpoint) runs inside, while the checkpoints exist.  Returns
+    launches of the uninterrupted run and the measurements."""
+    import dataclasses
+    import logging
+    import tempfile
+
+    import torch
+
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.core import precision
+    from weclip_tpu_torch.core.config import load_config
+    from weclip_tpu_torch.data.loader import PrefetchLoader
+    from weclip_tpu_torch.models import weclip
+    from weclip_tpu_torch.train import checkpoint
+    from weclip_tpu_torch.train import step as step_mod
+    from weclip_tpu_torch.train.trainer import train, validate
+
+    base = load_config(VOC_CONFIG)
+    host = synthetic_train_batch(base, 16, seed=8)
+    data = [{"img": host["img"][i], "present_mask": host["present_mask"][i]}
+            for i in range(16)]
+    val = labelled_voc_examples(8, seed=9)
+    frozen = weclip.random_frozen_state(base, seed=base.train.seed, device="cuda")
+    log = logging.getLogger("weclip_tpu_torch")
+    log.setLevel(logging.INFO)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("[train-loop] %(message)s"))
+    log.addHandler(handler)
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="weclip_chip_smoke_") as work:
+            def cfg_in(sub):
+                return dataclasses.replace(
+                    base, train=dataclasses.replace(base.train, eval_iters=every,
+                                                    ckpt_start_iter=0, log_iters=every),
+                    work_dir=dataclasses.replace(base.work_dir,
+                                                 dir=os.path.join(work, sub)))
+
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            full = train(cfg_in("full"), data, max_steps=steps, device="cuda",
+                         frozen=frozen, val_dataset=val)
+            torch.cuda.synchronize()
+            out["run_s"] = time.perf_counter() - t0
+            launches = {"train_loop": dict(kernels.launches)}
+            part_cfg = cfg_in("part")
+            train(part_cfg, data, max_steps=every, device="cuda", frozen=frozen,
+                  val_dataset=val)
+            resumed = train(part_cfg, data, max_steps=steps, device="cuda", frozen=frozen,
+                            val_dataset=val, resume=True)
+            pairs = [(a.detach(), b.detach()) for a, b in zip(
+                step_mod.param_leaves(resumed.params), step_mod.param_leaves(full.params))]
+            equal = all(torch.equal(a, b) for a, b in pairs)
+            worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                        for a, b in pairs)
+            print(f"[train-loop] {steps} steps (checkpoints and validation every {every}) "
+                  f"in {out['run_s']:.1f} s; resumed at step {every} to {steps}: params "
+                  f"bit-equal {equal}, largest difference / the leaf's largest |param| "
+                  f"{worst:.3e} (tol 1e-6); launches {json.dumps(launches['train_loop'])}",
+                  flush=True)
+            if resumed.step != steps or (not equal and worst > 1e-6):
+                raise AssertionError(f"resumed run differs: step {resumed.step}, {worst}")
+            out.update(resume_bit_equal=equal, resume_max_rel_diff=worst)
+
+            policy = precision.make_policy(base.precision.compute_dtype)
+            validate(base, full.params, frozen, val, policy, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = validate(base, full.params, frozen, val, policy, device="cuda")
+            torch.cuda.synchronize()
+            out["validate_ms"] = (time.perf_counter() - t0) * 1e3
+            out["val_scores"] = {k: {m: float(v[m]) for m in ("pAcc", "mAcc", "miou")}
+                                 for k, v in scores.items()}
+            print(f"[train-loop] validate (8 images, single scale, CAM chain, warm) "
+                  f"{out['validate_ms']:.1f} ms; scores {json.dumps(out['val_scores'])}",
+                  flush=True)
+
+            t0 = time.perf_counter()
+            path = checkpoint.save(os.path.join(work, "timing"), steps, full.params,
+                                   full.optimizer, full.scheduler)
+            out["ckpt_save_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            checkpoint.restore(path, device="cuda")
+            torch.cuda.synchronize()
+            out["ckpt_restore_ms"] = (time.perf_counter() - t0) * 1e3
+            out["ckpt_bytes"] = os.path.getsize(os.path.join(path, checkpoint.STATE_FILE))
+            loader = PrefetchLoader(data, base.train.samples_per_gpu, seed=base.train.seed)
+            try:
+                next(loader)
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    next(loader)
+                out["loader_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 / 20
+            finally:
+                loader.close()
+            print(f"[train-loop] checkpoint ({out['ckpt_bytes'] / 1e6:.1f} MB) save "
+                  f"{out['ckpt_save_ms']:.1f} ms, restore to the card "
+                  f"{out['ckpt_restore_ms']:.1f} ms; loader {out['loader_ms_per_batch']:.3f} "
+                  f"ms a batch of {base.train.samples_per_gpu} in-memory crops", flush=True)
+            ckpt_launches, out["model_path"] = run_model_path(
+                base, os.path.join(work, "full", base.work_dir.ckpt_dir,
+                                   f"step_{steps:08d}"), full.params, frozen)
+            launches.update(ckpt_launches)
+    finally:
+        log.removeHandler(handler)
+    del full, resumed
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def run_model_path(cfg, path: str, params, frozen):
+    """Phase 9: ``WeCLIPPipeline(model_path=path)`` segments one image as a
+    pipeline given the same parameters through ``weights``."""
+    import torch
+
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.api import WeCLIPPipeline
+
+    im = voc_images(1, seed=10)[0][0]
+    kernels.reset_launches()
+    got = WeCLIPPipeline(cfg, model_path=path, device="cuda",
+                         seed=cfg.train.seed).segment(im)
+    torch.cuda.synchronize()
+    launches = {"model_path_segment": dict(kernels.launches)}
+    want = WeCLIPPipeline(cfg, device="cuda",
+                          weights={"params": params, "frozen": frozen}).segment(im)
+    equal = bool(np.array_equal(got, want))
+    print(f"[model-path] segment from {os.path.basename(path)} equal to weights=: {equal}",
+          flush=True)
+    if not equal:
+        raise AssertionError(f"model_path pipeline differs on {(got != want).mean()} of pixels")
+    return launches, {"equal": equal}
+
+
+def eval_predictions(ev, params, frozen, examples):
+    """``Evaluator.run``'s per-batch steps, keeping the msc predictions:
+    (pred_msc (n, Co, Co) on the host, (seg, msc, cam) histograms)."""
+    from weclip_tpu_torch.evalx import metrics
+    k = ev.cfg.dataset.num_classes
+    hists = tuple(metrics.zero_hist(k, ev.device) for _ in range(3))
+    preds = []
+    bsz = ev.cfg.eval.batch_images
+    for s in range(0, len(examples), bsz):
+        sb1, sb2, sizes, labels, presents, ci, ca = ev.build_batch(examples[s:s + bsz])
+        seg_single, seg_avg1, cam = ev.scale1_for(ci.shape[1])(params, frozen, sb1, presents,
+                                                                sizes, ci, ca)
+        seg_avg2 = ev.scale2(params, frozen, sb2, presents, sizes)
+        _, pred, hists = ev.combine(seg_single, seg_avg1, seg_avg2, cam, labels, sizes, hists)
+        preds.append(pred.cpu().numpy())
+    return np.concatenate(preds), [h.cpu().numpy() for h in hists]
+
+
+def run_evaluator(n: int = 8):
+    """Phase 10: ``Evaluator.run`` msc-flip over ``n`` labelled VOC-size
+    images at full width (``Config()``, resize_long 512): warm images/s,
+    the device's idle share, the mIoU, every histogram counting exactly the
+    labelled pixels; then the first 2 images at fp32 on the card and on the
+    CPU (plain versions), the msc predictions agreeing on at least 0.99 of
+    the labelled pixels.  Returns launches of one run and the measurements."""
+    import dataclasses
+
+    import torch
+
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.core import precision
+    from weclip_tpu_torch.core.config import Config
+    from weclip_tpu_torch.evalx.runner import Evaluator, make_prep
+    from weclip_tpu_torch.models import weclip
+
+    cfg = Config()
+    examples = labelled_voc_examples(n, seed=11)
+    n_gt = sum(int(((ex["label"] >= 0) & (ex["label"] < 21)).sum()) for ex in examples)
+    prep = make_prep(cfg, max_ori=512, resize_long=cfg.eval.resize_long)
+
+    def model(device):
+        params = weclip.init_trainable_params(torch.Generator().manual_seed(0), cfg, device)
+        frozen = weclip.random_frozen_state(cfg, seed=0, device=device)
+        return params, frozen, frozen["visual"]["positional_embedding"].cpu().numpy()
+
+    params, frozen, pe = model("cuda")
+    ev = Evaluator(cfg, prep, pe, device="cuda")
+    kernels.reset_launches()
+    res = ev.run(params, frozen, examples, return_hists=True)
+    torch.cuda.synchronize()
+    launches = {"evaluator_run": dict(kernels.launches)}
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ev.run(params, frozen, examples)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    warm_s = float(np.median(times))
+    busy, idle = trace(lambda: ev.run(params, frozen, examples), f"Evaluator.run({n})")
+    totals = {k: int(h.sum()) for k, h in res["hists"].items()}
+    out = {"images_per_s": n / warm_s, "run_ms": warm_s * 1e3, "device_busy_ms": busy,
+           "idle_share": idle, "miou": {k: float(res[k]["miou"]) for k in res if k != "hists"},
+           "hist_totals": totals, "labelled_pixels": n_gt}
+    print(f"[evaluator] Evaluator.run msc-flip over {n} images: {warm_s * 1e3:.1f} ms warm "
+          f"(median of 3), {n / warm_s:.2f} images/s; mIoU {json.dumps(out['miou'])}; "
+          f"histogram totals {totals} (labelled pixels {n_gt}); launches "
+          f"{json.dumps(launches['evaluator_run'])}", flush=True)
+    if any(t != n_gt for t in totals.values()):
+        raise AssertionError(f"histogram totals {totals} != {n_gt} labelled pixels")
+    del params, frozen, ev
+
+    cfg2 = dataclasses.replace(cfg, eval=dataclasses.replace(cfg.eval, batch_images=2))
+    got = {}
+    for where, device in (("card", "cuda"), ("cpu", "cpu")):
+        p, f, pe = model(device)
+        ev = Evaluator(cfg2, prep, pe, policy=precision.FP32, device=device)
+        got[where] = eval_predictions(ev, p, f, examples[:2])
+        del p, f, ev
+    (pg, hg), (pc, hc) = got["card"], got["cpu"]
+    counted = np.stack([np.pad((ex["label"] >= 0) & (ex["label"] < 21),
+                               [(0, prep.canvas_out - ex["label"].shape[0]),
+                                (0, prep.canvas_out - ex["label"].shape[1])])
+                        for ex in examples[:2]])
+    agree = float((pg == pc)[counted].mean())
+    hist_agree = float(np.minimum(hg[1], hc[1]).sum() / hc[1].sum())
+    print(f"[evaluator] fp32 card vs CPU, first 2 images: msc predictions equal on "
+          f"{agree:.6f} of labelled pixels, msc histograms share {hist_agree:.6f} of "
+          f"their counts (need >= 0.99)", flush=True)
+    if agree < 0.99 or hist_agree < 0.99:
+        raise AssertionError(f"fp32 card and CPU evaluations disagree: {agree}, {hist_agree}")
+    out.update(fp32_msc_agreement=agree, fp32_msc_hist_agreement=hist_agree)
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def run_seg_steps():
+    """Phase 11: two ``seg_step`` steps at full width (``configs/voc.yaml``,
+    crop 320, batch 4, bf16 backbone) on random ground truth: finite losses,
+    every parameter moved; then one fp32 step at batch 1 on the card and on
+    the CPU, losses within 1e-4.  Returns launches of the two steps and the
+    measurements."""
+    import dataclasses
+
+    import torch
+
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.core import precision
+    from weclip_tpu_torch.core.config import load_config
+    from weclip_tpu_torch.models import weclip
+    from weclip_tpu_torch.train import seg_step
+    from weclip_tpu_torch.train import step as step_mod
+    from weclip_tpu_torch.train.trainer import make_batcher
+
+    cfg = load_config(VOC_CONFIG)
+    cfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer,
+                                                                 warmup_iter=0))
+    crop = cfg.dataset.crop_size
+    rng = np.random.default_rng(12)
+    label = rng.integers(0, 21, (4, crop, crop)).astype(np.int64)
+    label[:, :16] = 255
+    params = weclip.init_trainable_params(torch.Generator().manual_seed(0), cfg)
+    host = synthetic_train_batch(cfg, 4, seed=13)
+
+    def state_on(device, b):
+        frozen = weclip.random_frozen_state(cfg, seed=0, device=device)
+        state = seg_step.create_seg_train_state(None, cfg, device, params=params)
+        batch, _, _ = make_batcher(cfg, frozen, device)({k: v[:b] for k, v in host.items()})
+        return frozen, state, batch, torch.from_numpy(label[:b]).to(device)
+
+    frozen, state, batch, lab = state_on("cuda", 4)
+    fn = seg_step.make_seg_train_step(cfg, precision.make_policy(cfg.precision.compute_dtype))
+    before = [t.detach().clone() for t in step_mod.param_leaves(state.params)]
+    kernels.reset_launches()
+    losses = []
+    for _ in range(2):
+        state, m = fn(state, frozen, batch, lab, rng=3)
+        losses.append(float(m.loss))
+    torch.cuda.synchronize()
+    launches = {"seg_step": dict(kernels.launches)}
+    moved = sum(not torch.equal(a.detach(), b)
+                for a, b in zip(step_mod.param_leaves(state.params), before))
+    print(f"[seg-step] 2 steps at batch 4, crop {crop}: losses {losses}, accuracy "
+          f"{float(m.acc):.4f}; parameters moved {moved} of {len(before)}; launches "
+          f"{json.dumps(launches['seg_step'])}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or moved != len(before):
+        raise AssertionError(f"seg_step: losses {losses}, {moved} of {len(before)} moved")
+    del frozen, state, batch
+    fp32 = {}
+    fn = seg_step.make_seg_train_step(cfg, precision.FP32)
+    for where, device in (("cpu", "cpu"), ("card", "cuda")):
+        frozen, state, batch, lab = state_on(device, 1)
+        _, m = fn(state, frozen, batch, lab)
+        fp32[where] = float(m.loss)
+        del frozen, state, batch
+    diff = abs(fp32["card"] - fp32["cpu"])
+    print(f"[seg-step] fp32 step at batch 1: loss card {fp32['card']:.7f}, CPU "
+          f"{fp32['cpu']:.7f}, difference {diff:.3e} (tol 1e-4)", flush=True)
+    if diff > 1e-4:
+        raise AssertionError(f"fp32 seg_step loss differs by {diff}")
+    torch.cuda.empty_cache()
+    return launches, {"losses": losses, "fp32_loss_cpu": fp32["cpu"],
+                      "fp32_loss_card": fp32["card"], "fp32_loss_diff": diff}
+
+
 def profile_pipeline(pipe, ims, ids, reps: int = 3, tag: str = ""):
     """Warm host-clock times of the two calls (median of ``reps``), then
     one traced pair: device time by kernel and the device's idle share."""
@@ -1226,10 +1634,13 @@ def main() -> int:
     records = check_kernels()
     check_cti_kernels(records)
     launches, pipeline = run_pipeline()
-    comer_launches, comer = run_comer_pipeline()
-    train_launches, training = run_training()
-    launches.update(comer_launches)
-    launches.update(train_launches)
+    results = {"pipeline": pipeline}
+    for name, phase in (("comer_pipeline", run_comer_pipeline), ("training", run_training),
+                        ("coco_pseudo_label", run_coco_pseudo_label),
+                        ("train_loop", run_train_loop), ("evaluator", run_evaluator),
+                        ("seg_step", run_seg_steps)):
+        phase_launches, results[name] = phase()
+        launches.update(phase_launches)
     for name in kernels.launches:
         if not sum(phase[name] for phase in launches.values()):
             raise AssertionError(f"kernel {name} never launched on the main path")
@@ -1238,9 +1649,7 @@ def main() -> int:
         r["launches_by_call"] = {call: phase[r["name"]] for call, phase in launches.items()}
     seconds = time.perf_counter() - t_start
     print(f"[done] {seconds:.1f} s in all, on {card}", flush=True)
-    print(json.dumps({"kernels": records, "card": card, "pipeline": pipeline,
-                      "comer_pipeline": comer, "training": training,
-                      "seconds": seconds}))
+    print(json.dumps({"kernels": records, "card": card, **results, "seconds": seconds}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -60,6 +60,7 @@ def test_par_refine_matches_pallas(dil, iters, img_hw):
 @pytest.mark.parametrize("b,c,h,w,dil,iters", [
     (1, 21, 20, 28, (1, 2, 4, 8, 12, 24), 2),   # the clamp reaches past the image
     (2, 5, 37, 45, (1, 2, 4), 3),                 # ragged
+    (1, 81, 24, 40, (1, 2, 4, 8, 12, 24), 2),    # COCO without class ids
 ])
 def test_par_refine_matches_jax_at_tile_edges(b, c, h, w, dil, iters):
     """The plain par_refine (K4 and K5's oracle) against the JAX XLA

@@ -336,8 +336,8 @@ def test_pipeline_matches_engine_and_defaults_to_cuda(models, eval_runs):
     logits = eval_runs["torch"][3].numpy()
     np.testing.assert_array_equal(seg, logits[0].argmax(0)[:40, :56])
     assert seg.dtype == np.int32 and labels[0].dtype == np.int32
-    with pytest.raises(NotImplementedError):
-        WeCLIPPipeline(tcfg, device="cpu", model_path="ckpt")
+    with pytest.raises(FileNotFoundError):
+        WeCLIPPipeline(tcfg, device="cpu", model_path="no-such-checkpoint-dir")
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             WeCLIPPipeline(tcfg)

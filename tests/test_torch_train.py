@@ -28,13 +28,16 @@ from weclip_tpu.models import weclip as jweclip
 from weclip_tpu.ops.resize import resize_bilinear as jresize
 from weclip_tpu.train import losses as jlosses
 from weclip_tpu.train import optimizer as joptim
+from weclip_tpu.train import seg_step as jseg
 from weclip_tpu.train import step as jstep
+from weclip_tpu.train import trainer as jtrainer
 from weclip_tpu_torch import convert
 from weclip_tpu_torch.core import config as tconfig
 from weclip_tpu_torch.core import precision as tprec
 from weclip_tpu_torch.models import weclip as tweclip
 from weclip_tpu_torch.train import losses as tlosses
 from weclip_tpu_torch.train import optimizer as toptim
+from weclip_tpu_torch.train import seg_step as tseg
 from weclip_tpu_torch.train import step as tstep
 from weclip_tpu_torch.train import trainer as ttrainer
 
@@ -288,9 +291,10 @@ def test_step_trains_against_given_labels(setup):
     assert float(ignored.seg_loss) == 0.0 and float(own.seg_loss) > 0.0
 
 
-def test_trainer_runs_and_logs(setup, caplog):
-    """The trimmed trainer: two steps on an in-memory dataset with
-    dropout on, logged metrics, the parts not ported refused."""
+def test_trainer_runs_and_logs(setup, caplog, tmp_path):
+    """The trainer: two steps on an in-memory dataset through the
+    PrefetchLoader with dropout on, logged metrics, and the final
+    checkpoint at the step reached."""
     cfg, tcfg, tfrozen = setup[0], setup[1], setup[5]
     rng = np.random.default_rng(2)
     data = []
@@ -301,17 +305,150 @@ def test_trainer_runs_and_logs(setup, caplog):
                      "present_mask": present})
     tcfg = dataclasses.replace(
         tcfg, train=dataclasses.replace(tcfg.train, samples_per_gpu=2, log_iters=1),
-        precision=dataclasses.replace(tcfg.precision, compute_dtype="float32"))
+        precision=dataclasses.replace(tcfg.precision, compute_dtype="float32"),
+        work_dir=dataclasses.replace(tcfg.work_dir, dir=str(tmp_path)))
     with caplog.at_level(logging.INFO, logger="weclip_tpu_torch"):
         state = ttrainer.train(tcfg, data, max_steps=2, device="cpu", frozen=tfrozen)
     assert state.step == 2
     lines = [r.getMessage() for r in caplog.records if "seg_loss" in r.getMessage()]
     assert len(lines) == 2 and "iter 2/2" in lines[1]
-    first = next(ttrainer.batches(data, 2, 5))
-    assert first["img"].shape == (2, 3, 64, 64)
-    with pytest.raises(NotImplementedError):
-        ttrainer.train(tcfg, data, max_steps=1, device="cpu", resume=True)
-    saves = dataclasses.replace(tcfg, train=dataclasses.replace(
-        tcfg.train, eval_iters=1, ckpt_start_iter=0))
-    with pytest.raises(NotImplementedError):
-        ttrainer.train(saves, data, max_steps=1, device="cpu", frozen=tfrozen)
+    ckpt = tmp_path / tcfg.work_dir.ckpt_dir
+    assert sorted(p.name for p in ckpt.iterdir()) == ["step_00000002"]
+    with pytest.raises(ValueError):     # a dataset smaller than one batch
+        ttrainer.train(tcfg, data[:1], max_steps=1, device="cpu", frozen=tfrozen)
+
+
+def _plain_cfg():
+    """The tiny config without CoMer: (jax cfg, port cfg)."""
+    cfg = dataclasses.replace(tiny.tiny_config(num_classes=6),
+                              clip=tiny.tiny_clip_config(layers=4))
+    cfg = dataclasses.replace(cfg, eval=dataclasses.replace(cfg.eval, batch_images=2))
+    return cfg, tconfig.from_dict(dataclasses.asdict(cfg))
+
+
+def test_validate_matches_jax():
+    """trainer.validate (original size, single scale, CAM chain, canvas
+    512) against the JAX package's on three labelled images: the seg and
+    cam scores equal."""
+    cfg, tcfg = _plain_cfg()
+    frozen, clip_params = tiny.tiny_frozen(cfg)
+    params = jweclip.init_trainable_params(jax.random.PRNGKey(1), cfg)
+    rng = np.random.default_rng(7)
+    val = []
+    for oh, ow in ((48, 64), (64, 40), (33, 50)):
+        present = np.zeros(5, bool)
+        present[[1, 3]] = True
+        val.append({"img_raw": rng.integers(0, 256, (oh, ow, 3)).astype(np.uint8),
+                    "label": rng.choice([0, 2, 4, 255], (oh, ow)).astype(np.int32),
+                    "present_mask": present})
+    ref = jtrainer.validate(cfg, params, frozen, clip_params, val, jprec.FP32)
+    got = ttrainer.validate(tcfg, convert.params_from_jax(_np(params)),
+                            convert.frozen_from_jax(_np(frozen)), val, tprec.FP32,
+                            device="cpu")
+    assert set(got) == set(ref) == {"seg", "msc_seg", "cam"}
+    for key in got:
+        for s in ("pAcc", "mAcc", "miou"):
+            np.testing.assert_allclose(got[key][s], ref[key][s], rtol=1e-12,
+                                       err_msg=f"{key} {s}")
+    assert got["cam"]["miou"] > 0
+
+
+def test_sgd_matches_optax():
+    """Three poly-warmup SGD updates against the JAX package's optax chain
+    on the same gradients, across the warmup boundary (the multiplier falls
+    from 10x during warmup, then decays over the remaining steps)."""
+    ocfg = jconfig.OptimizerConfig(learning_rate=1e-3, warmup_iter=2, weight_decay=0.05,
+                                   power=0.9)
+    tcfg = tconfig.OptimizerConfig(**dataclasses.asdict(ocfg))
+    mult = toptim.sgd_poly_warmup_multiplier(tcfg, 5)
+    sched = joptim.sgd_poly_warmup_schedule(ocfg, 5, 1.0)
+    for t in range(7):
+        assert mult(t) == pytest.approx(float(sched(t)), rel=1e-6)
+    assert mult(0) == 10.0 and mult(1) < mult(0) and mult(2) == 1.0
+    rng = np.random.default_rng(3)
+    p0 = {"a": rng.standard_normal((4, 6)).astype(np.float32),
+          "b": rng.standard_normal(6).astype(np.float32)}
+    grads = [{k: rng.standard_normal(v.shape).astype(np.float32) for k, v in p0.items()}
+             for _ in range(3)]
+    tx = joptim.make_sgd_optimizer(ocfg, max_iters=5)
+    jp = jax.tree_util.tree_map(jnp.asarray, p0)
+    state = tx.init(jp)
+    tp = [torch.from_numpy(p0[k].copy()).requires_grad_(True) for k in ("a", "b")]
+    opt, sch = toptim.make_sgd_optimizer(tp, tcfg, max_iters=5)
+    for g in grads:
+        upd, state = tx.update(jax.tree_util.tree_map(jnp.asarray, g), state, jp)
+        jp = jax.tree_util.tree_map(lambda a, u: a + u, jp, upd)
+        for t, k in zip(tp, ("a", "b")):
+            t.grad = torch.from_numpy(g[k])
+        opt.step()
+        sch.step()
+        for t, k in zip(tp, ("a", "b")):
+            np.testing.assert_allclose(t.detach().numpy(), np.asarray(jp[k]),
+                                       rtol=1e-6, atol=1e-6)
+    assert not np.allclose(tp[0].detach().numpy(), p0["a"], atol=1e-3)
+
+
+def test_forward_train_without_pseudo_matches_jax(setup):
+    """forward_train(with_pseudo=False): the seg logits and the learned
+    affinity of JAX's at 1e-4, zero labels and refined CAMs of its shapes."""
+    cfg, tcfg, frozen, params, batch, tfrozen, tparams, tbatch = setup
+    ref = jax.jit(lambda p: jweclip.forward_train(
+        p, frozen, batch, cfg, jnp.bool_(False), None, jprec.FP32, with_pseudo=False))(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    got = tweclip.forward_train(tparams, tfrozen, tbatch, tcfg, False, None, tprec.FP32,
+                                with_pseudo=False)
+    for name in ("seg", "attn_pred"):
+        np.testing.assert_allclose(getattr(got, name).detach().numpy(),
+                                   np.asarray(getattr(ref, name)), rtol=FWD_TOL,
+                                   atol=FWD_TOL, err_msg=name)
+    for name in ("cam_labels", "cams_refined"):
+        want = np.asarray(getattr(ref, name))
+        assert tuple(getattr(got, name).shape) == want.shape and not want.any()
+        assert not getattr(got, name).any()
+
+
+def test_seg_step_in_lockstep_with_jax(monkeypatch):
+    """Two fully supervised steps (make_seg_train_step, frozen CLIP -> fuse
+    -> decoder) against JAX's on the same ground truth, dropout off in both,
+    lr 5e-4 from the first step: each step's loss within 1e-5 and its
+    accuracy equal; each leaf's two-step update within 1e-3 relative (L2)
+    of JAX's, key biases aside, and the parameters within 5e-4.  (AdamW
+    turns fp32 rounding in a gradient element near zero into a difference of
+    up to about 1e-5 in its parameter, so no tighter absolute bound holds.)"""
+    from weclip_tpu.models import heads as jheads
+    fuse = jheads.fuse_forward
+    monkeypatch.setattr(jheads, "fuse_forward",
+                        lambda p, x, rng=None, **kw: fuse(p, x, None, **kw))
+    cfg, _ = _plain_cfg()
+    cfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(
+        cfg.optimizer, learning_rate=5e-5, warmup_iter=0))
+    tcfg = tconfig.from_dict(dataclasses.asdict(cfg))
+    frozen, clip_params = tiny.tiny_frozen(cfg)
+    params = _np(jweclip.init_trainable_params(jax.random.PRNGKey(1), cfg))
+    tfrozen, tparams = (convert.frozen_from_jax(_np(frozen)),
+                        convert.params_from_jax(params))
+    batch = tiny.tiny_batch(cfg, clip_params, batch=2)
+    tbatch = tweclip.Batch(*(torch.from_numpy(np.array(x)) for x in batch))
+    rng = np.random.default_rng(5)
+    label = rng.integers(0, 6, (2, 64, 64)).astype(np.int32)
+    label[0, :10] = 255
+    jstate, tx = jseg.create_seg_train_state(jax.random.PRNGKey(0), cfg)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    jstate = jstep.TrainState(jp, tx.init(jp), jnp.zeros((), jnp.int32))
+    jfn = jseg.make_seg_train_step(cfg, tx, jprec.FP32)
+    state = tseg.create_seg_train_state(None, tcfg, "cpu", params=tparams)
+    tfn = tseg.make_seg_train_step(tcfg, tprec.FP32)
+    for _ in range(2):
+        jstate, jm = jfn(jstate, frozen, batch, jnp.asarray(label), jax.random.PRNGKey(9))
+        state, m = tfn(state, tfrozen, tbatch, torch.from_numpy(label))
+        np.testing.assert_allclose(float(m.loss), float(jm.loss), rtol=LOSS_TOL,
+                                   atol=LOSS_TOL)
+        assert float(m.acc) == pytest.approx(float(jm.acc), abs=1e-6)
+    assert state.step == 2
+    want = tstep.param_leaves(convert.params_from_jax(_np(jstate.params)))
+    for (name, t), r, p0 in zip(_named(state.params), want, tstep.param_leaves(tparams)):
+        np.testing.assert_allclose(t.detach().numpy(), r.numpy(), rtol=0, atol=GRAD_TOL,
+                                   err_msg=name)
+        keep = _not_key_bias(name, p0)
+        upd, upd_jax = (t.detach() - p0).double()[keep], (r - p0).double()[keep]
+        assert float((upd - upd_jax).norm() / upd_jax.norm()) <= UPDATE_TOL, name

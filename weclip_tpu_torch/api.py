@@ -5,9 +5,9 @@ The pipeline runs on ``device`` ("cuda" unless the caller asks for the
 CPU).  Without weights it is randomly initialized from ``seed`` at the
 configured width, with random unit class text embeddings, like the JAX
 trainer's development branch; ``weights`` hands in the port's trees (e.g.
-from ``convert.py``).  Restoring the JAX package's Orbax checkpoints
-(``model_path``), the CAM surface and CRF post-processing are not ported
-yet.
+from ``convert.py``), and ``model_path`` the trained parameters of a
+checkpoint (train/checkpoint.py: the port's own or the JAX package's
+Orbax ones).  The CAM surface and CRF post-processing are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,10 +40,9 @@ class WeCLIPPipeline:
                  seed: int = 0,
                  weights: Optional[Dict] = None):
         """``weights``: ``{"params": ..., "frozen": ...}`` in the port's
-        layout; default: random initialization from ``seed``."""
-        if model_path:
-            raise NotImplementedError(
-                "restoring checkpoints is not ported yet; pass weights=")
+        layout; default: random initialization from ``seed``.
+        ``model_path``: a checkpoint directory (its latest step) or one
+        ``step_N`` directory, whose parameters replace the trainable ones."""
         self.cfg = cfg or Config()
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -58,6 +57,9 @@ class WeCLIPPipeline:
             move = lambda t: weclip.tree_to(t, self.device)
             self.params = move(weights["params"])
             self.frozen = move(weights["frozen"])
+        if model_path:
+            from weclip_tpu_torch.train import checkpoint
+            self.params = checkpoint.restore(model_path, device=self.device)[0]
         self._evaluators: Dict = {}
 
     def _evaluator(self, max_ori: int, with_cam: bool, msc: bool):

@@ -543,7 +543,7 @@ extern "C" int par_propagate(const void* src, void* dst, void* tmp, const void* 
                              int B, int C, int H, int W, const void* dilations,
                              int n_dil, int num_iter, void* stream) {
   const int dpack = pack_dilations(static_cast<const int*>(dilations), n_dil);
-  if (dpack < 0 || C < 1 || C > 32 || B < 1 || H < 1 || W < 1 || num_iter < 0 ||
+  if (dpack < 0 || C < 1 || B < 1 || H < 1 || W < 1 || num_iter < 0 ||
       (num_iter > 1 && tmp == nullptr))
     return cudaErrorInvalidValue;
   const float* i = static_cast<const float*>(src);

@@ -4,11 +4,12 @@
   pseudo-label chain on the unflipped half, with original-resolution CAM
   labels on a fixed canvas;
 - scale 0.75: seg-only flip-averaged forward;
+- combine: the scales fused, argmax at the original resolution and the
+  three confusion histograms (single scale, msc, CAM) updated on the device;
 - msc logits: the scales combined and upsampled to original resolution.
 
 Every image size runs the same shapes: validity masks handle the token
-grid and per-image interpolation matrices the resolution changes.  The
-metric combine (``make_eval_combine``) waits for evalx/metrics.py.
+grid and per-image interpolation matrices the resolution changes.
 """
 
 from __future__ import annotations
@@ -182,6 +183,35 @@ def make_eval_scale2(cfg: Config, policy: precision.Policy = precision.DEFAULT,
         k = cfg.dataset.num_classes
         seg = head_out.seg.reshape(2 * b, g, g, k).permute(0, 3, 1, 2)
         return (seg[:b] + _flip_valid(seg[b:], sb.gw, 3)) / 2.0
+
+    return run
+
+
+def make_eval_combine(cfg: Config, msc: bool = True, prep=None):
+    """Returns fn: (seg_single, seg_avg1, seg_avg2, cam_labels, label, sizes,
+    hists) -> (pred_single, pred_msc, hists): scale fusion, the argmax of the
+    single-scale and msc logits upsampled to the output canvas, and the
+    (single, msc, cam) histograms updated against ``label``."""
+    from weclip_tpu_torch.evalx.metrics import confusion_update
+    k = cfg.dataset.num_classes
+    patch = cfg.clip.patch_size
+
+    @torch.no_grad()
+    def run(seg_single, seg_avg1, seg_avg2, cam_labels, label, sizes: EvalSizes,
+            hists):
+        if msc:
+            mh_s2, mw_s2 = _dev_ops_s2(sizes, prep.grid1, prep.grid2, patch)
+            msc_seg = (seg_avg1 + _resize_pair(seg_avg2, mh_s2, mw_s2)) / 2.0
+        else:
+            msc_seg = seg_avg1
+        mh_cam, mw_cam = _dev_ops_cam(sizes, prep.canvas_out, prep.grid1, patch)
+        pred_single = _resize_pair(seg_single, mh_cam, mw_cam).argmax(dim=1)
+        pred_msc = _resize_pair(msc_seg, mh_cam, mw_cam).argmax(dim=1)
+        h_single, h_msc, h_cam = hists
+        return pred_single, pred_msc, (
+            confusion_update(h_single, label, pred_single, k),
+            confusion_update(h_msc, label, pred_msc, k),
+            confusion_update(h_cam, label, cam_labels, k))
 
     return run
 

@@ -1,18 +1,25 @@
-"""Batch assembly and the msc-flip programs for one evaluation configuration
-(port of weclip_tpu/evalx/runner.py, inference side).
+"""Dataset-level evaluation loop (port of weclip_tpu/evalx/runner.py).
+
+Covers msc-flip inference (scales 1.0 and 0.75, each with its flip) and
+training-time validation (original size, single scale), with streaming
+confusion histograms for the single-scale, msc and CAM predictions.
 
 Host work per image is O(canvas^2): pad the uint8 original onto a fixed
 canvas and look up the positional embedding of its grid (cached on the
 device per grid size).  Normalization and resizing happen on the device
 (evalx/engine.py).  Host tensors are pinned and copied without blocking.
-The dataset loop (``run``), its metrics and the multi-device mesh are not
-ported yet.
+``run`` prepares the next batch on one host thread while the device works
+on the current one, and pads a ragged last batch with all-ignore labels, so
+the histograms are unaffected.  The multi-process histogram all-reduce and
+CRF post-processing are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import concurrent.futures as cf
+import os
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +27,8 @@ import torch
 from weclip_tpu_torch.core import precision
 from weclip_tpu_torch.core.compaction import compact_classes, pick_bucket
 from weclip_tpu_torch.core.config import Config
-from weclip_tpu_torch.evalx.engine import (EvalSizes, ScaleBatch,
+from weclip_tpu_torch.evalx import metrics
+from weclip_tpu_torch.evalx.engine import (EvalSizes, ScaleBatch, make_eval_combine,
                                            make_eval_scale1, make_eval_scale2,
                                            make_msc_logits)
 from weclip_tpu_torch.models.clip.vit import grid_valid_mask, pos_emb_host
@@ -91,6 +99,7 @@ class Evaluator:
         self.class_buckets = tuple(b for b in class_buckets if b < num_fg) + (num_fg,)
         self._scale1_cache: dict = {}
         self.scale2 = make_eval_scale2(cfg, policy, prep=prep) if msc else None
+        self.combine = make_eval_combine(cfg, msc=msc, prep=prep)
         self.msc_logits = make_msc_logits(cfg, msc=msc, prep=prep)
         self._pe_cache: dict = {}
 
@@ -167,3 +176,120 @@ class Evaluator:
         return (sb1, sb2, sizes, self._to_device(lab_buf),
                 self._to_device(presents), self._to_device(cls_idx),
                 self._to_device(cls_active))
+
+    def run(self, params, frozen, dataset, max_images: Optional[int] = None,
+            progress: bool = False, crf: bool = False,
+            save_dir: Optional[str] = None, logits_dir: Optional[str] = None,
+            return_hists: bool = False, process_index: Optional[int] = None,
+            process_count: Optional[int] = None) -> Dict[str, Dict]:
+        """Scores of the dataset's first ``max_images`` examples (each a
+        dict as ``build_batch`` reads it, plus ``name`` where predictions or
+        logits are saved): ``{"seg", "msc_seg"}`` and, with the CAM chain,
+        ``"cam"``, each ``metrics.scores`` of its histogram.
+
+        ``save_dir``: the msc prediction of each image as a PNG of class ids
+        under ``prediction/`` and in the VOC palette under
+        ``prediction_cmap/``.  ``logits_dir``: ``logit/<name>.npy`` per image,
+        a dict of the scale-1 grid logits cropped to the image's own grid
+        (``segs``, (1, K, h1 / patch, w1 / patch)) and the msc logits at the
+        original size (``msc_segs``, (1, K, H, W)).  ``return_hists`` adds
+        the int64 histograms under ``"hists"``.
+
+        ``process_index``/``process_count``, given together, evaluate the
+        strided shard ``range(n)[process_index::process_count]`` and return
+        that shard's scores and histograms (the caller sums them).  Without
+        them the whole dataset is evaluated; in a multi-process
+        ``torch.distributed`` run that would need the histograms reduced
+        across processes, which is not ported yet."""
+        if crf:
+            raise NotImplementedError("CRF post-processing is not ported yet")
+        if (process_index is None) != (process_count is None):
+            raise ValueError("pass both process_index and process_count or neither")
+        if process_index is None:
+            dist = torch.distributed
+            if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+                raise NotImplementedError(
+                    "the multi-process histogram all-reduce is not ported yet; "
+                    "pass process_index and process_count and sum the histograms")
+            pi, pc = 0, 1
+        else:
+            pi, pc = process_index, process_count
+        if not 0 <= pi < pc:
+            raise ValueError(f"process_index {pi} outside [0, {pc})")
+        k = self.cfg.dataset.num_classes
+        patch = self.cfg.clip.patch_size
+        hists = tuple(metrics.zero_hist(k, self.device) for _ in range(3))
+        bsz = self.cfg.eval.batch_images
+        n = len(dataset) if max_images is None else min(len(dataset), max_images)
+        my_idx = list(range(n))[pi::pc]
+        starts = list(range(0, len(my_idx), bsz))
+
+        def prepare(s):
+            examples = [dataset[i] for i in my_idx[s:s + bsz]]
+            n_real = len(examples)
+            while len(examples) < bsz:                    # ragged tail: pad
+                pad = dict(examples[-1])
+                pad["label"] = np.full_like(pad["label"], 255)
+                examples.append(pad)
+            return examples, n_real, self.build_batch(examples)
+
+        if save_dir is not None:
+            for sub in ("prediction", "prediction_cmap"):
+                os.makedirs(os.path.join(save_dir, sub), exist_ok=True)
+        if logits_dir is not None:
+            os.makedirs(os.path.join(logits_dir, "logit"), exist_ok=True)
+        it = range(len(starts))
+        if progress:
+            from tqdm import tqdm
+            it = tqdm(it, ncols=100)
+        # one host thread builds batch i + 1 while the device runs batch i
+        with cf.ThreadPoolExecutor(max_workers=1) as pool:
+            pending = pool.submit(prepare, starts[0]) if starts else None
+            for i in it:
+                examples, n_real, built = pending.result()
+                if i + 1 < len(starts):
+                    pending = pool.submit(prepare, starts[i + 1])
+                sb1, sb2, sizes, labels, presents, cls_idx, cls_active = built
+                seg_single, seg_avg1, cam_labels = self.scale1_for(cls_idx.shape[1])(
+                    params, frozen, sb1, presents, sizes, cls_idx, cls_active)
+                seg_avg2 = (self.scale2(params, frozen, sb2, presents, sizes)
+                            if self.msc else seg_avg1)
+                _, pred_msc, hists = self.combine(seg_single, seg_avg1, seg_avg2,
+                                                  cam_labels, labels, sizes, hists)
+                if save_dir is not None:
+                    _save_predictions(save_dir, examples[:n_real], pred_msc)
+                if logits_dir is not None:
+                    _save_logits(logits_dir, examples[:n_real], seg_single,
+                                 self.msc_logits(seg_avg1, seg_avg2, sizes), sizes, patch)
+        h_single, h_msc, h_cam = (h.cpu().numpy() for h in hists)
+        out = {"seg": metrics.scores(h_single), "msc_seg": metrics.scores(h_msc)}
+        if self.with_cam:
+            # without the CAM chain the cam histogram counts all-zero labels
+            out["cam"] = metrics.scores(h_cam)
+        if return_hists:
+            out["hists"] = {"seg": h_single, "msc_seg": h_msc}
+            if self.with_cam:
+                out["hists"]["cam"] = h_cam
+        return out
+
+
+def _save_predictions(save_dir: str, examples, pred: torch.Tensor) -> None:
+    from weclip_tpu_torch.utils.imutils import save_prediction
+    pm = pred.cpu().numpy()
+    for j, ex in enumerate(examples):
+        oh, ow = ex["label"].shape
+        name = str(ex["name"]) + ".png"
+        save_prediction(os.path.join(save_dir, "prediction", name), pm[j, :oh, :ow])
+        save_prediction(os.path.join(save_dir, "prediction_cmap", name),
+                        pm[j, :oh, :ow], cmap=True)
+
+
+def _save_logits(logits_dir: str, examples, seg_single: torch.Tensor,
+                 msc_logits: torch.Tensor, sizes: EvalSizes, patch: int) -> None:
+    sg, lg = seg_single.cpu().numpy(), msc_logits.cpu().numpy()
+    h1s, w1s = sizes.h1.cpu().numpy(), sizes.w1.cpu().numpy()
+    for j, ex in enumerate(examples):
+        oh, ow = ex["label"].shape
+        gh1, gw1 = int(h1s[j]) // patch, int(w1s[j]) // patch
+        np.save(os.path.join(logits_dir, "logit", str(ex["name"]) + ".npy"),
+                {"segs": sg[j, :, :gh1, :gw1][None], "msc_segs": lg[j, :, :oh, :ow][None]})

@@ -183,14 +183,24 @@ def forward_train(params: Dict[str, Any], frozen: Dict[str, Any], batch: Batch,
                   gen: Optional[torch.Generator] = None,
                   policy: precision.Policy = precision.DEFAULT,
                   cls_idx: Optional[torch.Tensor] = None,
-                  cls_active: Optional[torch.Tensor] = None) -> ForwardOutputs:
+                  cls_active: Optional[torch.Tensor] = None,
+                  with_pseudo: bool = True) -> ForwardOutputs:
     """Training forward on fixed square crops (valid all true): heads with
-    gradient, pseudo labels without."""
+    gradient, pseudo labels without.  ``with_pseudo=False`` (the fully
+    supervised variant) skips the attention export and the pseudo-label
+    chain: the labels and refined CAMs are zeros."""
     feats, head_out, attn_pred, _ = backbone_and_heads(
-        params, frozen, batch, cfg, policy, gen=gen)
-    cam_labels, refined = pseudo_labels(frozen, feats, attn_pred, batch, cfg,
-                                        require_seg_trans, tuple(batch.img.shape[-2:]),
-                                        policy, cls_idx=cls_idx, cls_active=cls_active)
+        params, frozen, batch, cfg, policy, with_attn=with_pseudo, gen=gen)
+    h, w = batch.img.shape[-2:]
+    if with_pseudo:
+        cam_labels, refined = pseudo_labels(frozen, feats, attn_pred, batch, cfg,
+                                            require_seg_trans, (h, w), policy,
+                                            cls_idx=cls_idx, cls_active=cls_active)
+    else:
+        b, dev = batch.img.shape[0], batch.img.device
+        cam_labels = torch.zeros((b, h, w), dtype=torch.int64, device=dev)
+        refined = torch.zeros((b, cfg.dataset.num_classes - 1, batch.valid.shape[1] - 1),
+                              dtype=torch.float32, device=dev)
     return ForwardOutputs(head_out.seg, cam_labels, attn_pred, refined)
 
 

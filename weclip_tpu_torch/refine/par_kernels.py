@@ -24,7 +24,6 @@ from weclip_tpu_torch.refine import par as par_plain
 
 _MAX_DIL = 6        # csrc/par.cu: kMaxDil
 _MAX_DILATION = 24  # csrc/par.cu: kHalo, the halo the tiles stage
-_MAX_CHANNELS = 32  # csrc/par.cu: par_propagate's limit
 
 
 def _dilations(cfg: ParConfig):
@@ -73,7 +72,9 @@ def par_affinity(imgs: torch.Tensor, cfg: ParConfig) -> torch.Tensor:
 
 
 def par_propagate(masks: torch.Tensor, aff: torch.Tensor, cfg: ParConfig) -> torch.Tensor:
-    """K5: ``cfg.num_iter`` Jacobi iterations on (B, C, H, W) fp32 masks.
+    """K5: ``cfg.num_iter`` Jacobi iterations on (B, C, H, W) fp32 masks,
+    any C >= 1 (the kernel walks the channels in chunks of at most 6, each
+    chunk re-reading the affinities).
 
     The first iteration reads ``masks`` and writes a new buffer, so the
     caller's masks are never written and need no copy."""
@@ -84,8 +85,6 @@ def par_propagate(masks: torch.Tensor, aff: torch.Tensor, cfg: ParConfig) -> tor
     n = 8 * len(cfg.dilations)
     if tuple(aff.shape) != (b, n, h, w):
         raise ValueError(f"par_propagate: aff {tuple(aff.shape)} != {(b, n, h, w)}")
-    if c > _MAX_CHANNELS:
-        raise ValueError(f"par_propagate: {c} channels > {_MAX_CHANNELS}")
     dil = _dilations(cfg)
     if cfg.num_iter == 0:
         return masks

@@ -1,4 +1,4 @@
-"""Poly-warmup AdamW (port of weclip_tpu/train/optimizer.py, AdamW only).
+"""Poly-warmup AdamW and SGD (port of weclip_tpu/train/optimizer.py).
 
 The JAX package uses ``optax.adamw`` with a schedule; this is
 ``torch.optim.AdamW`` with a ``LambdaLR`` that computes the same numbers:
@@ -11,7 +11,12 @@ The JAX package uses ``optax.adamw`` with a schedule; this is
 - decoupled weight decay on every parameter, eps 1e-8, bias-corrected
   moments (the two updates differ only in fp32 rounding order).
 
-The SGD variant is not ported.
+The SGD variant keeps its own schedule, quirk included: during warmup the
+multiplier is (1 - t/W) ** power * 10, so it falls from 10x to 0, then
+poly decay over the remaining steps (1 - (t - W)/(T - W)) ** power, t
+clamped to T - 1.  ``torch.optim.SGD`` adds the weight decay to the
+gradient before the momentum, as the JAX package's
+``add_decayed_weights`` ahead of ``optax.sgd`` does.
 """
 
 from __future__ import annotations
@@ -34,6 +39,17 @@ def poly_warmup_multiplier(cfg: OptimizerConfig, max_iters: int
     return mult
 
 
+def sgd_poly_warmup_multiplier(cfg: OptimizerConfig, max_iters: int
+                               ) -> Callable[[int], float]:
+    def mult(step: int) -> float:
+        t, w = float(step), float(cfg.warmup_iter)
+        if t < w:
+            return max(1.0 - t / w, 0.0) ** cfg.power * 10.0
+        tp = min(t, float(max_iters - 1))
+        return max(1.0 - (tp - w) / (max_iters - w), 0.0) ** cfg.power
+    return mult
+
+
 def make_optimizer(params: Iterable[torch.Tensor], cfg: OptimizerConfig,
                    max_iters: int
                    ) -> Tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
@@ -43,4 +59,15 @@ def make_optimizer(params: Iterable[torch.Tensor], cfg: OptimizerConfig,
                             betas=tuple(cfg.betas), eps=1e-8,
                             weight_decay=cfg.weight_decay)
     sched = torch.optim.lr_scheduler.LambdaLR(opt, poly_warmup_multiplier(cfg, max_iters))
+    return opt, sched
+
+
+def make_sgd_optimizer(params: Iterable[torch.Tensor], cfg: OptimizerConfig,
+                       max_iters: int, momentum: float = 0.9
+                       ) -> Tuple[torch.optim.SGD, torch.optim.lr_scheduler.LambdaLR]:
+    """(optimizer, scheduler) of the poly-warmup SGD, used as
+    ``make_optimizer``'s."""
+    opt = torch.optim.SGD(list(params), lr=cfg.learning_rate * cfg.head_lr_mult,
+                          momentum=momentum, weight_decay=cfg.weight_decay)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, sgd_poly_warmup_multiplier(cfg, max_iters))
     return opt, sched

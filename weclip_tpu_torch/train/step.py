@@ -28,7 +28,7 @@ from weclip_tpu_torch.train.optimizer import make_optimizer
 @dataclasses.dataclass
 class TrainState:
     params: Dict[str, Any]
-    optimizer: torch.optim.AdamW
+    optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LambdaLR
     step: int
 

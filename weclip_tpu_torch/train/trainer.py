@@ -1,24 +1,27 @@
-"""Iteration-based training loop (port of weclip_tpu/train/trainer.py,
-trimmed to one card and an in-memory dataset).
+"""Iteration-based training loop (port of weclip_tpu/train/trainer.py, one
+card).
 
-``dataset`` is required: a sequence of examples, each a dict with ``img``
-((3, crop, crop) float32, normalized) and ``present_mask`` ((C_fg,) bool).
-Batches follow the JAX loader's order for one process: a fresh
-permutation of the dataset per epoch from ``numpy.random.default_rng``
-seeded with ``train.seed``, incomplete batches dropped.  Each step compacts
-its batch's present classes into a bucket (core/compaction.py).  The VOC
-loader, resuming, validation and checkpoint saving are not ported yet:
-``resume`` and ``val_dataset`` raise ``NotImplementedError``, and so does a
-run that reaches a step where the JAX trainer saves a checkpoint (every
-``train.eval_iters`` steps past ``train.ckpt_start_iter``); no final
-checkpoint is written.
+Batches come from ``data/loader.py::PrefetchLoader``: a fresh permutation
+of the dataset per epoch from ``numpy.random.default_rng(train.seed)``,
+incomplete batches dropped, per-item augmentation seeds.  Each step compacts
+its batch's present classes into a bucket (core/compaction.py).  Every
+``train.eval_iters`` steps the loop saves a checkpoint (past
+``train.ckpt_start_iter``) and validates on ``val_dataset`` where one is
+given; it saves a last checkpoint at the end.  Each validation advances the
+seg-trans gate by ``len(val_dataset)``, as the reference's shared forward
+counter does.  ``resume`` continues from the latest checkpoint: parameters,
+optimizer and scheduler state, the step, the validation count, and the data
+stream at the batch an uninterrupted run would read next (the JAX trainer
+restarts the stream), so a resumed run computes what an uninterrupted one
+does.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
-from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,27 +29,13 @@ import torch
 from weclip_tpu_torch.core import precision
 from weclip_tpu_torch.core.compaction import compact_classes, pick_bucket
 from weclip_tpu_torch.core.config import Config
+from weclip_tpu_torch.data.loader import PrefetchLoader
 from weclip_tpu_torch.models import weclip
 from weclip_tpu_torch.models.clip.vit import pos_emb_host
+from weclip_tpu_torch.train import checkpoint
 from weclip_tpu_torch.train import step as step_mod
 
 log = logging.getLogger("weclip_tpu_torch")
-
-
-def batches(dataset: Sequence[Dict[str, np.ndarray]], batch_size: int,
-            seed: int) -> Iterator[Dict[str, np.ndarray]]:
-    """Shuffled, repeating, drop-last batches of ``img`` and
-    ``present_mask``."""
-    if len(dataset) < batch_size:
-        raise ValueError(f"dataset of {len(dataset)} examples is smaller than "
-                         f"one batch ({batch_size})")
-    rng = np.random.default_rng(seed)
-    while True:
-        order = rng.permutation(len(dataset))
-        for s in range(0, len(order) // batch_size * batch_size, batch_size):
-            exs = [dataset[int(i)] for i in order[s:s + batch_size]]
-            yield {k: np.stack([np.asarray(e[k]) for e in exs])
-                   for k in ("img", "present_mask")}
 
 
 def make_batcher(cfg: Config, frozen: Dict, device
@@ -79,45 +68,99 @@ def make_batcher(cfg: Config, frozen: Dict, device
     return to_device
 
 
-def train(cfg: Config, dataset: Sequence[Dict[str, np.ndarray]],
-          max_steps: Optional[int] = None, device="cuda",
+def build_dataset(cfg: Config):
+    """The training dataset of ``cfg.dataset`` (VOC or COCO layout)."""
+    if cfg.dataset.name == "coco":
+        from weclip_tpu_torch.data.coco import CocoClsDataset
+        return CocoClsDataset(cfg.dataset, cfg.train.split, seed=cfg.train.seed)
+    from weclip_tpu_torch.data.voc import VOCClsDataset
+    return VOCClsDataset(cfg.dataset, cfg.train.split, seed=cfg.train.seed)
+
+
+def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cuda",
           frozen: Optional[Dict] = None, resume: bool = False,
           val_dataset=None) -> step_mod.TrainState:
-    """Train the heads (and CoMer where enabled) for ``max_steps`` (default
-    ``train.max_iters``) steps; ``frozen`` defaults to the random frozen
-    state of seed ``train.seed``.  Logs the window means of the losses and
-    the pseudo-label accuracy every ``train.log_iters`` steps."""
-    if resume or val_dataset is not None:
-        raise NotImplementedError("resume and validation are not ported yet")
+    """Train the heads (and CoMer where enabled) to step ``max_steps``
+    (default ``train.max_iters``).  ``dataset``: examples with ``img``
+    ((3, crop, crop) float32, normalized) and ``present_mask`` ((C_fg,)
+    bool), by default the training split of ``cfg.dataset``; ``val_dataset``:
+    examples as ``evalx/runner.py::Evaluator.run`` reads them.  ``frozen``
+    defaults to the random frozen state of seed ``train.seed``.
+    Checkpoints go to ``work_dir.dir/work_dir.ckpt_dir``.  Logs the window
+    means of the losses and the pseudo-label accuracy every
+    ``train.log_iters`` steps, and the validation scores."""
     pc = cfg.precision
     policy = precision.make_policy(pc.compute_dtype, pc.param_dtype, pc.softmax_dtype)
     if torch.device(device).type == "cuda":
         precision.strict_matmul()
     if frozen is None:
         frozen = weclip.random_frozen_state(cfg, seed=cfg.train.seed, device=device)
+    if dataset is None:
+        dataset = build_dataset(cfg)
+    ckpt_dir = os.path.join(cfg.work_dir.dir, cfg.work_dir.ckpt_dir)
+    params = None
+    val_forward_calls = 0
+    if resume and checkpoint.latest_step(ckpt_dir) is not None:
+        params, saved, step0 = checkpoint.restore(ckpt_dir, device=device)
     state = step_mod.create_train_state(
-        torch.Generator().manual_seed(cfg.train.seed), cfg, device)
+        torch.Generator().manual_seed(cfg.train.seed), cfg, device, params=params)
+    if params is not None:
+        state.optimizer.load_state_dict(saved["optimizer"])
+        state.scheduler.load_state_dict(saved["scheduler"])
+        state.step = step0
+        if val_dataset is not None:
+            val_forward_calls = (step0 // cfg.train.eval_iters) * len(val_dataset)
+        log.info("resumed from step %d", step0)
     step_fn = step_mod.make_train_step(cfg, policy)
     to_device = make_batcher(cfg, frozen, device)
 
     bsz = cfg.train.samples_per_gpu
     total = max_steps or cfg.train.max_iters
-    it = batches(dataset, bsz, cfg.train.seed)
+    loader = PrefetchLoader(dataset, bsz, seed=cfg.train.seed, start=state.step)
     msum, n_window, t_window = None, 0, time.perf_counter()
-    for n_iter in range(state.step, total):
-        if ((n_iter + 1) % cfg.train.eval_iters == 0
-                and n_iter + 1 > cfg.train.ckpt_start_iter):
-            raise NotImplementedError("checkpoint saving is not ported yet")
-        batch, ci, ca = to_device(next(it))
-        state, m = step_fn(state, frozen, batch, rng=cfg.train.seed + 1,
-                           cls_idx=ci, cls_active=ca)
-        msum = m if msum is None else step_mod.StepMetrics(*(a + b for a, b in zip(msum, m)))
-        n_window += 1
-        if (n_iter + 1) % cfg.train.log_iters == 0 or n_iter + 1 == total:
-            means = [float(x) / n_window for x in msum]
-            rate = n_window * bsz / (time.perf_counter() - t_window)
-            log.info("iter %d/%d; img/s %.2f; loss %.4f; seg_loss %.4f; "
-                     "attn_loss %.4f; pseudo_acc %.4f", n_iter + 1, total, rate,
-                     *means)
-            msum, n_window, t_window = None, 0, time.perf_counter()
+    try:
+        for n_iter in range(state.step, total):
+            batch, ci, ca = to_device(next(loader))
+            state, m = step_fn(state, frozen, batch, rng=cfg.train.seed + 1,
+                               cls_idx=ci, cls_active=ca,
+                               extra_iter_num=val_forward_calls)
+            msum = m if msum is None else step_mod.StepMetrics(
+                *(a + b for a, b in zip(msum, m)))
+            n_window += 1
+            if (n_iter + 1) % cfg.train.log_iters == 0 or n_iter + 1 == total:
+                means = [float(x) / n_window for x in msum]
+                rate = n_window * bsz / (time.perf_counter() - t_window)
+                log.info("iter %d/%d; img/s %.2f; loss %.4f; seg_loss %.4f; "
+                         "attn_loss %.4f; pseudo_acc %.4f", n_iter + 1, total, rate,
+                         *means)
+                msum, n_window, t_window = None, 0, time.perf_counter()
+            if (n_iter + 1) % cfg.train.eval_iters == 0:
+                if n_iter + 1 > cfg.train.ckpt_start_iter:
+                    log.info("saved %s", checkpoint.save(
+                        ckpt_dir, n_iter + 1, state.params, state.optimizer,
+                        state.scheduler))
+                if val_dataset is not None:
+                    scores = validate(cfg, state.params, frozen, val_dataset, policy,
+                                      device=device)
+                    log.info("val seg: %s", scores["seg"])
+                    log.info("val cam: %s", scores["cam"])
+                    val_forward_calls += len(val_dataset)
+    finally:
+        loader.close()
+    checkpoint.save(ckpt_dir, total, state.params, state.optimizer, state.scheduler)
     return state
+
+
+def validate(cfg: Config, params, frozen, val_dataset, policy: precision.Policy,
+             max_images: Optional[int] = None, device="cuda"):
+    """Training-time validation: the original-size, single-scale forward
+    with the CAM chain, scored for the segmentation and the CAM labels
+    (``Evaluator.run``'s dict); images up to 512 pixels (VOC) or 640
+    (COCO)."""
+    from weclip_tpu_torch.evalx.runner import Evaluator, make_prep
+    max_ori = 512 if cfg.dataset.name == "voc" else 640
+    prep = make_prep(cfg, max_ori=max_ori, resize_long=None)
+    pe = frozen["visual"]["positional_embedding"].float().cpu().numpy()
+    ev = Evaluator(cfg, prep, pe, policy=policy, with_cam=True, msc=False,
+                   device=str(torch.device(device)))
+    return ev.run(params, frozen, val_dataset, max_images=max_images)

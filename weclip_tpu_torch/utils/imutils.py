@@ -1,5 +1,6 @@
-"""Image helpers (port of the parts of weclip_tpu/utils/imutils.py the
-inference path reads)."""
+"""Image helpers (port of the parts of weclip_tpu/utils/imutils.py that the
+inference and evaluation paths read): grayscale promotion, the VOC palette
+and prediction PNGs.  PIL is imported only where a PNG is written."""
 
 from __future__ import annotations
 
@@ -11,3 +12,34 @@ def promote_rgb(img: np.ndarray) -> np.ndarray:
     if img.ndim == 2:
         img = np.stack([img] * 3, axis=-1)
     return img[..., :3]
+
+
+def colormap(n: int = 256) -> np.ndarray:
+    """The VOC palette: bit k of each of a class id's 3-bit groups sets
+    bit 7 - k of its red, green and blue."""
+    cmap = np.zeros((n, 3), dtype=np.uint8)
+    for i in range(n):
+        r = g = b = 0
+        c = i
+        for j in range(8):
+            r |= (c & 1) << (7 - j)
+            g |= ((c >> 1) & 1) << (7 - j)
+            b |= ((c >> 2) & 1) << (7 - j)
+            c >>= 3
+        cmap[i] = (r, g, b)
+    return cmap
+
+
+_CMAP = colormap()
+
+
+def encode_cmap(label: np.ndarray) -> np.ndarray:
+    """Class-id mask -> (H, W, 3) uint8 RGB in the VOC palette."""
+    return _CMAP[np.asarray(label, np.int64) % 256]
+
+
+def save_prediction(path: str, pred: np.ndarray, cmap: bool = False) -> None:
+    """A class-id mask as an 8-bit grayscale PNG, or in the VOC palette."""
+    from PIL import Image
+    arr = encode_cmap(pred) if cmap else np.asarray(pred, np.uint8)
+    Image.fromarray(arr).save(path)
