@@ -51,22 +51,38 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
 11. two ``seg_step`` steps (crop 320, batch 4): finite losses, every
    parameter moved; one fp32 step at batch 1 on the card and the CPU,
    losses within 1e-4;
-12. one ``{"kernels": [...]}`` line, then as the last line
+12. a seeded random ViT-B/16 checkpoint in OpenAI's key layout (fp16) and a
+   synthetic merges file: ``load_clip`` infers ``Config().clip``'s widths,
+   ``build_frozen`` on the card and the CPU, fp32 text features within
+   1e-4;
+13. the eval CLI (``weclip_tpu_torch.cli.eval_voc.main``) on 8 labelled
+   VOC-size images held only in the decoded cache, that checkpoint as
+   ``clip.pretrained_path`` and phase 8's as ``--model_path``: finite
+   scores, histogram totals equal to the labelled pixels and equal to a
+   direct ``Evaluator.run``, K1-K5 launched, warm images/s;
+14. ``WeCLIPPipeline.cam`` by each of the 8 CAM methods (K1, and K3 for
+   the gradient methods), card against CPU in fp32 through ``cam_single``,
+   and ``generate_cams`` over the 8 cached images;
+15. one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counters are reset just before each call of phases 4-11 and read
-just after it; every kernel must have launched on that main path.
+Launch counters are reset just before each call of phases 4-14 and read
+just after it; every kernel must have launched on that main path.  Every
+time is printed with the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1241,7 +1257,7 @@ def labelled_voc_examples(n: int, seed: int, num_classes: int = 21):
     return out
 
 
-def run_train_loop(steps: int = 6, every: int = 3):
+def run_train_loop(steps: int = 6, every: int = 3, keep: str = None):
     """Phase 8: ``train/trainer.py::train`` at full width
     (``configs/voc.yaml``: crop 320, batch 4), 16 random crops through the
     PrefetchLoader, 8 labelled VOC-size images for validation, a checkpoint
@@ -1249,8 +1265,9 @@ def run_train_loop(steps: int = 6, every: int = 3):
     ``every`` steps, and a resumed run to ``steps``, whose parameters must
     equal the uninterrupted run's.  Times a validation, a checkpoint save
     and restore and the loader's batches.  Phase 9 (a pipeline built from
-    the last checkpoint) runs inside, while the checkpoints exist.  Returns
-    launches of the uninterrupted run and the measurements."""
+    the last checkpoint) runs inside, while the checkpoints exist; a copy of
+    that checkpoint goes to ``keep`` for phase 13.  Returns launches of the
+    uninterrupted run and the measurements."""
     import dataclasses
     import logging
     import tempfile
@@ -1348,9 +1365,11 @@ def run_train_loop(steps: int = 6, every: int = 3):
                   f"{out['ckpt_save_ms']:.1f} ms, restore to the card "
                   f"{out['ckpt_restore_ms']:.1f} ms; loader {out['loader_ms_per_batch']:.3f} "
                   f"ms a batch of {base.train.samples_per_gpu} in-memory crops", flush=True)
-            ckpt_launches, out["model_path"] = run_model_path(
-                base, os.path.join(work, "full", base.work_dir.ckpt_dir,
-                                   f"step_{steps:08d}"), full.params, frozen)
+            last = os.path.join(work, "full", base.work_dir.ckpt_dir, f"step_{steps:08d}")
+            if keep:
+                shutil.copytree(last, os.path.join(keep, f"step_{steps:08d}"))
+            ckpt_launches, out["model_path"] = run_model_path(base, last, full.params,
+                                                              frozen)
             launches.update(ckpt_launches)
     finally:
         log.removeHandler(handler)
@@ -1547,6 +1566,408 @@ def run_seg_steps():
                       "fp32_loss_card": fp32["card"], "fp32_loss_diff": diff}
 
 
+# OpenAI's ViT-B/16 checkpoint: vision 768 wide, 12 layers, patch 16, 197
+# positions; text 512 wide (8 heads), 12 layers, context 77, vocabulary
+# 49408; joint embedding 512
+VIT_B16 = dict(vision_width=768, vision_layers=12, patch=16, grid=14, text_width=512,
+               text_layers=12, context=77, vocab=49408, embed=512)
+# a synthetic merges file: a version line and a few merges
+MERGES = ["#version: 0.2", "o r", "a n", "i n", "e r</w>", "t h", "c l", "cl e", "an </w>",
+          "o ri", "g a", "s e", "p e", "r s", "o n</w>", "a i", "t r", "d o"]
+
+
+def clip_state_dict(seed: int, vision_width: int, vision_layers: int, patch: int,
+                    grid: int, text_width: int, text_layers: int, context: int,
+                    vocab: int, embed: int):
+    """A seeded random CLIP state dict in OpenAI's key layout and fp16 (as
+    OpenAI ships it), drawn on the card and returned on the CPU."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = {}
+
+    def normal(shape, std, mean=0.0):
+        t = torch.randn(shape, generator=gen, device="cuda") * std + mean
+        return t.half().cpu()
+
+    def ln(prefix, w):
+        sd[prefix + ".weight"] = normal((w,), 0.1, 1.0)
+        sd[prefix + ".bias"] = normal((w,), 0.1)
+
+    def blocks(prefix, w, layers):
+        for i in range(layers):
+            p = f"{prefix}.{i}."
+            sd[p + "attn.in_proj_weight"] = normal((3 * w, w), w ** -0.5)
+            sd[p + "attn.in_proj_bias"] = normal((3 * w,), 0.02)
+            sd[p + "attn.out_proj.weight"] = normal((w, w), w ** -0.5)
+            sd[p + "attn.out_proj.bias"] = normal((w,), 0.02)
+            sd[p + "mlp.c_fc.weight"] = normal((4 * w, w), w ** -0.5)
+            sd[p + "mlp.c_fc.bias"] = normal((4 * w,), 0.02)
+            sd[p + "mlp.c_proj.weight"] = normal((w, 4 * w), (4 * w) ** -0.5)
+            sd[p + "mlp.c_proj.bias"] = normal((w,), 0.02)
+            ln(p + "ln_1", w)
+            ln(p + "ln_2", w)
+
+    vw, tw = vision_width, text_width
+    sd["visual.class_embedding"] = normal((vw,), vw ** -0.5)
+    sd["visual.positional_embedding"] = normal((grid * grid + 1, vw), vw ** -0.5)
+    sd["visual.proj"] = normal((vw, embed), vw ** -0.5)
+    sd["visual.conv1.weight"] = normal((vw, 3, patch, patch), (3 * patch * patch) ** -0.5)
+    ln("visual.ln_pre", vw)
+    blocks("visual.transformer.resblocks", vw, vision_layers)
+    ln("visual.ln_post", vw)
+    sd["positional_embedding"] = normal((context, tw), 0.01)
+    sd["text_projection"] = normal((tw, embed), tw ** -0.5)
+    sd["logit_scale"] = torch.tensor(math.log(1 / 0.07)).half()
+    sd["token_embedding.weight"] = normal((vocab, tw), 0.02)
+    blocks("transformer.resblocks", tw, text_layers)
+    ln("ln_final", tw)
+    return sd
+
+
+def run_clip_checkpoint(work: str, card: str):
+    """Phase 12: a seeded random ViT-B/16 checkpoint in OpenAI's layout
+    (fp16) and a synthetic merges file written to ``work``; ``load_clip``
+    infers ``Config().clip``'s widths; ``build_frozen`` on the card and on
+    the CPU, fp32 text features within 1e-4.  Returns the launches of the
+    card's ``build_frozen`` (the text encoder runs the plain attention) and
+    the measurements; sets ``WECLIP_BPE_PATH``."""
+    import dataclasses
+    import gzip
+
+    import torch
+
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.core.config import Config
+    from weclip_tpu_torch.models.clip import loader, prompts
+    from weclip_tpu_torch.models.clip.tokenizer import Tokenizer
+    from weclip_tpu_torch.train.trainer import build_frozen
+
+    path = os.path.join(work, "ViT-B-16.pt")
+    sd = clip_state_dict(0, **VIT_B16)
+    torch.save(sd, path)
+    n_params = sum(t.numel() for t in sd.values())
+    del sd
+    bpe = os.path.join(work, "bpe_vocab.txt.gz")
+    with gzip.open(bpe, "wt") as f:
+        f.write("\n".join(MERGES) + "\n")
+    os.environ["WECLIP_BPE_PATH"] = bpe
+
+    t0 = time.perf_counter()
+    params, clip_cfg = loader.load_clip(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want = Config().clip
+    widths = ("vision_width", "vision_layers", "vision_heads", "patch_size", "embed_dim",
+              "context_length", "vocab_size", "transformer_width", "transformer_heads",
+              "transformer_layers")
+    got = {k: getattr(clip_cfg, k) for k in widths}
+    if got != {k: getattr(want, k) for k in widths}:
+        raise AssertionError(f"infer_config gave {got}")
+    t0 = time.perf_counter()
+    prompts.build_text_features("voc", params["text"], clip_cfg, Tokenizer())
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    del params
+    cfg = dataclasses.replace(Config(), clip=dataclasses.replace(Config().clip,
+                                                                  pretrained_path=path))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    frozen_card, _, _ = build_frozen(cfg, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {"build_frozen": dict(kernels.launches)}
+    t0 = time.perf_counter()
+    frozen_cpu, _, _ = build_frozen(cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    errs = {k: max_err(frozen_card[k].cpu(), frozen_cpu[k]) for k in ("fg_text", "bg_text")}
+    shapes = {k: tuple(frozen_card[k].shape) for k in ("fg_text", "bg_text")}
+    size = os.path.getsize(path)
+    print(f"[clip] checkpoint {n_params / 1e6:.2f} M parameters, {size / 1e6:.1f} MB fp16; "
+          f"load_clip to the card {load_s:.2f} s, 45 VOC prompts encoded (fp32) "
+          f"{encode_ms:.1f} ms; build_frozen card {card_s:.2f} s, CPU {cpu_s:.2f} s; text "
+          f"features {shapes} card vs CPU max err {errs} (tol 1e-4); on {card}", flush=True)
+    if shapes != {"fg_text": (20, 512), "bg_text": (25, 512)} or max(errs.values()) > 1e-4:
+        raise AssertionError(f"text features: {shapes}, {errs}")
+    del frozen_card, frozen_cpu
+    torch.cuda.empty_cache()
+    return path, launches, {"parameters": n_params, "file_bytes": size, "load_s": load_s,
+                            "encode_ms": encode_ms, "build_frozen_card_s": card_s,
+                            "build_frozen_cpu_s": cpu_s, "text_max_err": errs}
+
+
+@contextlib.contextmanager
+def cli_logging():
+    """Removes the root-logger handlers a command-line ``main()`` adds, and
+    its level, when the block ends."""
+    import logging
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    try:
+        yield
+    finally:
+        for h in root.handlers[:]:
+            if h not in handlers:
+                root.removeHandler(h)
+                h.close()
+        root.setLevel(level)
+
+
+def write_voc_tree(work: str, examples, ckpt: str) -> str:
+    """A VOC tree whose 8 images and labels sit only in the decoded cache
+    (``.npy``, no JPEG to decode), its ``val`` list and image-level labels,
+    and a config naming it and the CLIP checkpoint; returns the config's
+    path."""
+    root = os.path.join(work, "voc")
+    cache = os.path.join(root, "decoded")
+    lists = os.path.join(root, "lists")
+    os.makedirs(cache)
+    os.makedirs(lists)
+    onehot = {}
+    for ex in examples:
+        np.save(os.path.join(cache, ex["name"] + ".npy"), ex["img_raw"])
+        np.save(os.path.join(cache, ex["name"] + "_lab.npy"), ex["label"].astype(np.uint8))
+        onehot[ex["name"]] = ex["present_mask"].astype(np.float32)
+    np.save(os.path.join(lists, "cls_labels_onehot.npy"), onehot)
+    with open(os.path.join(lists, "val.txt"), "w") as f:
+        f.write("\n".join(ex["name"] for ex in examples))
+    cfg = {"dataset": {"name": "voc", "root_dir": root, "name_list_dir": lists,
+                       "num_classes": 21, "decoded_cache_dir": cache},
+           "clip": {"pretrained_path": ckpt, "embedding_dim": 256},
+           "work_dir": {"dir": os.path.join(work, "work")}}
+    path = os.path.join(work, "voc_cli.yaml")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def run_eval_cli(work: str, ckpt: str, model_path: str, card: str):
+    """Phase 13: ``python -m weclip_tpu_torch.cli.eval_voc`` through its
+    ``main()``, on the card: the config of ``write_voc_tree`` (8 labelled
+    VOC-size images, decoded cache only, ``clip.pretrained_path`` the phase
+    12 checkpoint), ``--model_path`` phase 8's checkpoint, ``--save_preds
+    --save_logits``.  Finite scores, histogram totals equal to the labelled
+    pixels, K1-K5 launched, histograms equal to an ``Evaluator.run`` called
+    directly on the same examples and weights, one PNG and one logit file
+    an image; warm images/s.  Returns the launches of one CLI call, the
+    config's path and the measurements."""
+    import torch
+
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.cli import eval_voc
+    from weclip_tpu_torch.core import precision
+    from weclip_tpu_torch.core.config import load_config
+    from weclip_tpu_torch.evalx.runner import Evaluator, make_prep
+    from weclip_tpu_torch.train import checkpoint
+    from weclip_tpu_torch.train.trainer import build_frozen
+
+    examples = labelled_voc_examples(8, seed=14)
+    cfg_path = write_voc_tree(work, examples, ckpt)
+    n_gt = sum(int(((ex["label"] >= 0) & (ex["label"] < 21)).sum()) for ex in examples)
+    out = os.path.join(work, "eval_out")
+    argv = ["--config", cfg_path, "--model_path", model_path, "--save_preds", "--save_logits",
+            "--work_dir", out, "--device", "cuda"]
+    runs = []
+    orig_run = Evaluator.run
+
+    def run(self, *args, **kw):
+        t0 = time.perf_counter()
+        res = orig_run(self, *args, **dict(kw, return_hists=True))
+        torch.cuda.synchronize()
+        runs.append((res, time.perf_counter() - t0))
+        return res
+
+    Evaluator.run = run
+    try:
+        with cli_logging():
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            scores = eval_voc.main(argv)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            launches = {"eval_voc_cli": dict(kernels.launches)}
+            t0 = time.perf_counter()
+            eval_voc.main(argv)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+    finally:
+        Evaluator.run = orig_run
+    hists = runs[-1][0]["hists"]
+    run_s = runs[-1][1]
+    totals = {k: int(h.sum()) for k, h in hists.items()}
+    finite = all(math.isfinite(float(scores[k][m])) for k in ("seg", "msc_seg", "cam")
+                 for m in ("pAcc", "miou"))
+    missing = [k for k in ("attention_fwd_export", "attention_fwd", "attention_bwd",
+                           "par_affinity", "par_propagate")
+               if not launches["eval_voc_cli"][k]]
+    saved = [len(os.listdir(os.path.join(out, d))) for d in ("prediction", "prediction_cmap",
+                                                              "logit")]
+
+    cfg = load_config(cfg_path)
+    frozen, _, cfg = build_frozen(cfg, device="cuda")
+    params = checkpoint.restore(model_path, device="cuda")[0]
+    prep = make_prep(cfg, max_ori=512, resize_long=512)
+    ev = Evaluator(cfg, prep, frozen["visual"]["positional_embedding"].float().cpu().numpy(),
+                   policy=precision.make_policy(cfg.precision.compute_dtype), device="cuda")
+    direct = ev.run(params, frozen, examples, return_hists=True)["hists"]
+    equal = all(np.array_equal(direct[k], hists[k]) for k in ("seg", "msc_seg", "cam"))
+    t0 = time.perf_counter()
+    ev.run(params, frozen, examples)
+    torch.cuda.synchronize()
+    unsaved_s = time.perf_counter() - t0
+    res = {"first_call_s": first_s, "warm_call_s": warm_s, "evaluator_run_ms": run_s * 1e3,
+           "images_per_s": 8 / run_s, "cli_images_per_s": 8 / warm_s,
+           "direct_run_without_saving_ms": unsaved_s * 1e3,
+           "miou": {k: float(scores[k]["miou"]) for k in ("seg", "msc_seg", "cam")},
+           "hist_totals": totals, "labelled_pixels": n_gt,
+           "equal_to_direct_run": equal, "saved_files": saved}
+    print(f"[eval-cli] eval_voc main() over 8 cached VOC-size images: first call "
+          f"{first_s:.2f} s, warm call {warm_s:.2f} s ({8 / warm_s:.2f} images/s with "
+          f"checkpoint loading), its Evaluator.run {run_s * 1e3:.1f} ms ({8 / run_s:.2f} "
+          f"images/s; a direct warm run without saving {unsaved_s * 1e3:.1f} ms); mIoU "
+          f"{json.dumps(res['miou'])}; histogram totals {totals} (labelled "
+          f"{n_gt}); equal to a direct Evaluator.run: {equal}; files {saved}; launches "
+          f"{json.dumps(launches['eval_voc_cli'])}; on {card}", flush=True)
+    if (not finite or missing or any(t != n_gt for t in totals.values()) or not equal
+            or saved != [8, 8, 8]):
+        raise AssertionError(f"eval CLI: finite {finite}, not launched {missing}, totals "
+                             f"{totals}, equal {equal}, files {saved}")
+    del frozen, params, ev
+    torch.cuda.empty_cache()
+    return launches, cfg_path, res
+
+
+CAM_METHODS = ("grad_cam", "grad_cam_pp", "xgrad_cam", "layer_cam", "eigen_cam",
+               "eigen_grad_cam", "score_cam", "ablation_cam")
+
+
+def run_cam_surface(cfg_path: str, work: str, card: str):
+    """Phase 14: ``WeCLIPPipeline.cam`` by each of the 8 methods on one
+    VOC-size image on the card (the phase 12 checkpoint): maps (20, H, W),
+    finite, in [0, 1], K1 launched and K3 for the gradient methods (the
+    perturbation methods at all 768 channels).  Then one image in fp32, card
+    against CPU, on the same block-11 tokens (3 classes; ``score_cam`` and
+    ``ablation_cam`` at ``top_channels=16``): every method's maps before the
+    ReLU within 1e-3 of each map's largest magnitude (the eigen pair up to
+    sign), and the finished maps of ``cam_single`` within 1e-3 (all but the
+    eigen pair).  Then ``generate_cams`` over the 8
+    cached images.  Returns launches per call and the measurements."""
+    import torch
+
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.api import WeCLIPPipeline
+    from weclip_tpu_torch.cam import variants
+    from weclip_tpu_torch.cli import generate_cams
+    from weclip_tpu_torch.core import precision
+    from weclip_tpu_torch.core.config import load_config
+    from weclip_tpu_torch.evalx.engine import prepare_scale1_images
+    from weclip_tpu_torch.models import weclip
+    from weclip_tpu_torch.models.clip import vit
+
+    cfg = load_config(cfg_path)
+    im = voc_images(1, seed=15)[0][0]
+    pipe = WeCLIPPipeline(cfg, device="cuda")
+    launches, times = {}, {}
+    for method in CAM_METHODS:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        maps = pipe.cam(im, method=method)
+        torch.cuda.synchronize()
+        times[method] = (time.perf_counter() - t0) * 1e3
+        launches[f"cam_{method}"] = dict(kernels.launches)
+        ok = (maps.shape == (20,) + im.shape[:2] and np.isfinite(maps).all()
+              and maps.min() >= 0.0 and maps.max() <= 1.0 + 1e-6)
+        need = ["attention_fwd_export"] + (["attention_bwd"]
+                                           if method in variants.GRADIENT_METHODS else [])
+        missing = [k for k in need if not kernels.launches[k]]
+        if not ok or missing:
+            raise AssertionError(f"cam {method}: shape {maps.shape}, range "
+                                 f"[{maps.min()}, {maps.max()}], not launched {missing}")
+    warm = {}
+    for method in ("grad_cam", "score_cam"):
+        t0 = time.perf_counter()
+        pipe.cam(im, method=method)
+        torch.cuda.synchronize()
+        warm[method] = (time.perf_counter() - t0) * 1e3
+    print(f"[cam] WeCLIPPipeline.cam (20 classes, {im.shape[:2]}) first-call ms "
+          f"{json.dumps({k: round(v, 1) for k, v in times.items()})}, warm grad_cam "
+          f"{warm['grad_cam']:.1f} ms, score_cam (768 channels) {warm['score_cam']:.1f} ms; "
+          f"launches {json.dumps({k: launches[f'cam_{k}'] for k in ('grad_cam', 'score_cam')})}"
+          f"; on {card}", flush=True)
+
+    # fp32, card against CPU, on the same block-11 tokens of one image
+    ev = pipe._evaluator(max(im.shape[:2]), with_cam=True, msc=False)
+    sb, _, sizes, _, presents, _, _ = ev.build_batch([pipe._example(im)])
+    imgs = prepare_scale1_images(sb.img, sizes, cfg, ev.prep.canvas_in1)
+    x11 = vit.vision_forward_frozen(pipe.frozen["visual"], imgs, sb.pos_emb, sb.valid,
+                                    pipe.cfg.clip, policy=precision.FP32).layer_tokens[-1][0]
+    text = torch.cat([pipe.frozen["fg_text"], pipe.frozen["bg_text"]])
+    tmask = torch.ones(text.shape[0], dtype=torch.bool, device="cuda")
+    ci = torch.tensor([2, 8, 14], device="cuda")
+    frozen_cpu = weclip.tree_to(pipe.frozen, "cpu")
+    errs, raw_errs, positive = {}, {}, {}
+    for method in CAM_METHODS:
+        got = {}
+        top = 16 if method in ("score_cam", "ablation_cam") else None
+        for dev, fz in (("cuda", pipe.frozen), ("cpu", frozen_cpu)):
+            args = (fz["visual"], fz["logit_scale"], x11.to(dev), text.to(dev),
+                    tmask.to(dev), sb.valid[0].to(dev), ci.to(dev), pipe.cfg.clip,
+                    precision.FP32)
+            raw = variants.raw_maps(method, *args, top_channels=top)
+            got[dev] = (raw.cpu(), variants.cam_single(method, *args, top_channels=top).cpu())
+        (a, fa), (b, fb) = got["cuda"], got["cpu"]
+        positive[method] = float((fb > 0).float().mean())
+        # the raw maps against each map's largest magnitude: the eigen pair's
+        # up to the singular vector's sign, which LAPACK and cuSOLVER pick
+        # apart; their finished maps then differ, and are not compared
+        sign = (torch.sign((a * b).sum(dim=1, keepdim=True)) if method.startswith("eigen")
+                else torch.ones(()))
+        scale = b.abs().amax(dim=1)
+        if not bool((scale > 0).all()):
+            raise AssertionError(f"{method}: a raw CPU map is identically zero")
+        raw_errs[method] = float(((sign * a - b).abs().amax(dim=1) / scale).max())
+        if not method.startswith("eigen"):
+            errs[method] = max_err(fa, fb)
+    print(f"[cam] fp32 card vs CPU through cam_single, classes {ci.tolist()}, perturbation "
+          f"pair at top_channels=16 (tol 1e-3): maps before ReLU and min-max, max err / "
+          f"each map's largest {json.dumps({k: float(f'{v:.3e}') for k, v in raw_errs.items()})}"
+          f" (eigen pair up to sign); finished maps max err "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; share of positive "
+          f"values in the CPU's finished maps "
+          f"{json.dumps({k: round(v, 4) for k, v in positive.items()})}", flush=True)
+    if max(list(errs.values()) + list(raw_errs.values())) > 1e-3:
+        raise AssertionError(f"CAM methods: card and CPU differ: {raw_errs}, {errs}")
+    del pipe, frozen_cpu
+    torch.cuda.empty_cache()
+
+    out = os.path.join(work, "cams")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with cli_logging():
+        generate_cams.main(["--config", cfg_path, "--split", "val", "--out", out,
+                            "--device", "cuda"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches["generate_cams"] = dict(kernels.launches)
+    examples = labelled_voc_examples(8, seed=14)
+    for ex in examples:
+        d = np.load(os.path.join(out, ex["name"] + ".npy"), allow_pickle=True).item()
+        keys = np.where(ex["present_mask"])[0]
+        hi = d["attn_highres"]
+        if (not np.array_equal(d["keys"], keys) or hi.dtype != np.float16
+                or hi.shape != (len(keys),) + ex["label"].shape
+                or not np.isfinite(hi.astype(np.float32)).all()):
+            raise AssertionError(f"generate_cams {ex['name']}: keys {d['keys']} vs {keys}, "
+                                 f"{hi.dtype} {hi.shape}")
+    if len(os.listdir(out)) != len(examples):
+        raise AssertionError(f"generate_cams wrote {sorted(os.listdir(out))}")
+    print(f"[cam] generate_cams over 8 cached images: {gen_s:.2f} s (first call, with "
+          f"checkpoint loading); one fp16 npy an image, keys the present classes; launches "
+          f"{json.dumps(launches['generate_cams'])}; on {card}", flush=True)
+    return launches, {"first_call_ms": times, "warm_ms": warm, "fp32_card_vs_cpu": errs,
+                      "fp32_raw_card_vs_cpu": raw_errs, "fp32_positive_share": positive,
+                      "generate_cams_s": gen_s}
+
+
 def profile_pipeline(pipe, ims, ids, reps: int = 3, tag: str = ""):
     """Warm host-clock times of the two calls (median of ``reps``), then
     one traced pair: device time by kernel and the device's idle share."""
@@ -1635,12 +2056,24 @@ def main() -> int:
     check_cti_kernels(records)
     launches, pipeline = run_pipeline()
     results = {"pipeline": pipeline}
-    for name, phase in (("comer_pipeline", run_comer_pipeline), ("training", run_training),
-                        ("coco_pseudo_label", run_coco_pseudo_label),
-                        ("train_loop", run_train_loop), ("evaluator", run_evaluator),
-                        ("seg_step", run_seg_steps)):
-        phase_launches, results[name] = phase()
+    work = tempfile.mkdtemp(prefix="weclip_chip_smoke_")
+    try:
+        for name, phase in (("comer_pipeline", run_comer_pipeline),
+                            ("training", run_training),
+                            ("coco_pseudo_label", run_coco_pseudo_label),
+                            ("train_loop", lambda: run_train_loop(keep=work)),
+                            ("evaluator", run_evaluator), ("seg_step", run_seg_steps)):
+            phase_launches, results[name] = phase()
+            launches.update(phase_launches)
+        ckpt, phase_launches, results["clip_checkpoint"] = run_clip_checkpoint(work, card)
         launches.update(phase_launches)
+        phase_launches, cfg_path, results["eval_cli"] = run_eval_cli(
+            work, ckpt, os.path.join(work, "step_00000006"), card)
+        launches.update(phase_launches)
+        phase_launches, results["cam"] = run_cam_surface(cfg_path, work, card)
+        launches.update(phase_launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     for name in kernels.launches:
         if not sum(phase[name] for phase in launches.values()):
             raise AssertionError(f"kernel {name} never launched on the main path")

@@ -140,6 +140,27 @@ def test_voc_decoded_cache_matches_jax(voc, tmp_path):
     _assert_items_equal(first, jds[2])
 
 
+def test_voc_decoded_cache_needs_no_pil(voc, tmp_path, monkeypatch):
+    """A tree already in the decoded cache reads with PIL unimportable
+    (images and labels: the evaluation datasets' items), equal to the JAX
+    package's items.  The training augmentation's rescale still uses PIL."""
+    import sys
+    _, jcfg, tcfg = voc
+    cfg = dataclasses.replace(tcfg, decoded_cache_dir=str(tmp_path / "cache"))
+    filled = [tvoc.VOCSegDataset(cfg, "val")[i] for i in range(4)]
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    with pytest.raises(ImportError):
+        from PIL import Image  # noqa: F401
+    seg = tvoc.VOCSegDataset(cfg, "val")
+    for i in range(4):
+        _assert_items_equal(seg[i], filled[i])
+    assert seg.read_label(NAMES[3]).shape == seg.read_image(NAMES[3]).shape[:2]
+    monkeypatch.undo()
+    for i in range(4):
+        _assert_items_equal(filled[i], jvoc.VOCSegDataset(jcfg, "val")[i])
+
+
 def test_coco_datasets_match_jax(tmp_path):
     """CocoClsDataset.get_example and CocoSegDataset items, a grayscale
     image among them, at 81 classes."""

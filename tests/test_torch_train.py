@@ -16,6 +16,12 @@ import logging
 import numpy as np
 import pytest
 import torch
+# torch.optim imports torch._dynamo at the first optimizer it builds, and
+# that import looks up the specs of optional packages such as sklearn; a
+# module stub without a spec that another test file leaves in sys.modules
+# (tests/test_utils_extra.py) then makes it raise.  Importing it here, when
+# the test files are collected, keeps every later optimizer clear of that.
+import torch._dynamo  # noqa: F401
 
 import jax
 import jax.numpy as jnp

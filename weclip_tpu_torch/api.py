@@ -1,13 +1,16 @@
 """High-level user API (port of weclip_tpu/api.py): load once, then segment
-images or make pseudo-labels, one image or a batch at a time.
+images, make pseudo-labels or per-class CAM heatmaps, one image or a batch
+at a time.
 
 The pipeline runs on ``device`` ("cuda" unless the caller asks for the
-CPU).  Without weights it is randomly initialized from ``seed`` at the
-configured width, with random unit class text embeddings, like the JAX
-trainer's development branch; ``weights`` hands in the port's trees (e.g.
-from ``convert.py``), and ``model_path`` the trained parameters of a
-checkpoint (train/checkpoint.py: the port's own or the JAX package's
-Orbax ones).  The CAM surface and CRF post-processing are not ported yet.
+CPU).  Without ``weights`` the frozen CLIP and the class text embeddings
+come from ``train/trainer.py::build_frozen``: the checkpoint at
+``cfg.clip.pretrained_path`` with the prompts encoded by its text tower, or,
+where there is none, random weights from ``seed`` and random unit text
+embeddings (a development setup, with a warning).  ``weights`` hands in the
+port's trees (e.g. from ``convert.py``), and ``model_path`` the trained
+parameters of a checkpoint (train/checkpoint.py: the port's own or the JAX
+package's Orbax ones).  CRF post-processing is not ported yet.
 """
 
 from __future__ import annotations
@@ -40,7 +43,9 @@ class WeCLIPPipeline:
                  seed: int = 0,
                  weights: Optional[Dict] = None):
         """``weights``: ``{"params": ..., "frozen": ...}`` in the port's
-        layout; default: random initialization from ``seed``.
+        layout; default: ``build_frozen`` (the CLIP checkpoint of the
+        config, else random from ``seed``) and heads initialized from
+        ``seed``.
         ``model_path``: a checkpoint directory (its latest step) or one
         ``step_N`` directory, whose parameters replace the trainable ones."""
         self.cfg = cfg or Config()
@@ -49,10 +54,10 @@ class WeCLIPPipeline:
             prec.strict_matmul()
         self.policy = prec.make_policy(precision_name)
         if weights is None:
+            from weclip_tpu_torch.train.trainer import build_frozen
+            self.frozen, _, self.cfg = build_frozen(self.cfg, seed, device=self.device)
             gen = torch.Generator().manual_seed(seed)
             self.params = weclip.init_trainable_params(gen, self.cfg, self.device)
-            self.frozen = weclip.random_frozen_state(self.cfg, seed=seed,
-                                                     device=self.device)
         else:
             move = lambda t: weclip.tree_to(t, self.device)
             self.params = move(weights["params"])
@@ -61,6 +66,7 @@ class WeCLIPPipeline:
             from weclip_tpu_torch.train import checkpoint
             self.params = checkpoint.restore(model_path, device=self.device)[0]
         self._evaluators: Dict = {}
+        self._cam_programs: Dict = {}
 
     def _evaluator(self, max_ori: int, with_cam: bool, msc: bool):
         from weclip_tpu_torch.evalx.runner import Evaluator, make_prep
@@ -145,3 +151,24 @@ class WeCLIPPipeline:
         """CAM + affinity walk + PAR pseudo label (single scale)."""
         ids = None if class_ids is None else [class_ids]
         return self.pseudo_label_batch([image_rgb], class_ids=ids)[0]
+
+    def cam(self, image_rgb: np.ndarray, class_ids: Optional[Sequence[int]] = None,
+            method: str = "grad_cam") -> np.ndarray:
+        """Refined per-class CAM heatmaps: min-max normalized and refined by
+        the attention random walk (cam/highres.py).  Returns
+        ``(len(class_ids) or num_fg, H, W) float32`` in [0, 1], in the order
+        of ``class_ids`` (every foreground class when None); ``method`` is
+        one of ``cam/variants.py::METHODS``."""
+        ev = self._evaluator(max(image_rgb.shape[:2]), with_cam=True, msc=False)
+        key = (ev.prep.canvas_out, method)
+        if key not in self._cam_programs:
+            from weclip_tpu_torch.cam.highres import make_cam_program
+            self._cam_programs[key] = make_cam_program(self.cfg, ev.prep, self.policy,
+                                                       method=method)
+        sb1, _, sizes, _, presents, _, _ = ev.build_batch([self._example(image_rgb,
+                                                                         class_ids)])
+        highres = self._cam_programs[key](self.frozen, sb1, presents, sizes)
+        oh, ow = image_rgb.shape[:2]
+        ids = (list(range(self.cfg.dataset.num_classes - 1))
+               if class_ids is None else [int(c) for c in class_ids])
+        return highres[0, ids, :oh, :ow].float().cpu().numpy()

@@ -57,24 +57,22 @@ def _minmax_valid(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, x, torch.zeros_like(x))
 
 
-def gradcam_batch(
+def acts_and_grads(
     visual_params,
     logit_scale: torch.Tensor,
     x11: torch.Tensor,              # (B, L, D) input tokens to block 11
     text_features: torch.Tensor,    # (T, E) rows [fg ; bg]
     text_mask: torch.Tensor,        # (B, T) bool: present fg + all bg
     valid: torch.Tensor,            # (B, L)
-    num_fg: int,
+    class_idx: torch.Tensor,        # (B, MC) class ids
     cfg: ClipConfig,
     policy: precision.Policy = precision.DEFAULT,
-    class_idx: Optional[torch.Tensor] = None,   # (B, MC) class ids
-    num_patches: Optional[int] = None,
-) -> CamOutputs:
-    """GradCAMs for the given foreground classes of every image.  Returns
-    cams (B, MC, P) on the grid block [1:1+P]."""
+):
+    """Block 11's ln_1 output ``a0`` (B, L, D), the gradient of each class
+    seed's probability at it (B, MC, L, D), block 11's head-mean attention
+    (B, L, L) and the probabilities (B, T): one backward over the class
+    bucket expanded onto the batch."""
     b, l, d = x11.shape
-    if class_idx is None:
-        class_idx = torch.arange(num_fg, device=x11.device).expand(b, num_fg)
     mc = class_idx.shape[1]
     block11 = vit.block_params(visual_params["blocks"], cfg.vision_layers - 1)
     p = {"ln_post": visual_params["ln_post"], "proj": visual_params["proj"],
@@ -92,7 +90,31 @@ def gradcam_batch(
         seeds = torch.nn.functional.one_hot(class_idx.reshape(-1),
                                             text_features.shape[0]).to(probs.dtype)
         (grads,) = torch.autograd.grad((probs * seeds).sum(), a)
-    grads = grads.reshape(b, mc, l, d)
+    return (a0, grads.reshape(b, mc, l, d), attn_w.detach()[::mc],
+            probs.detach()[::mc])
+
+
+def gradcam_batch(
+    visual_params,
+    logit_scale: torch.Tensor,
+    x11: torch.Tensor,              # (B, L, D) input tokens to block 11
+    text_features: torch.Tensor,    # (T, E) rows [fg ; bg]
+    text_mask: torch.Tensor,        # (B, T) bool: present fg + all bg
+    valid: torch.Tensor,            # (B, L)
+    num_fg: int,
+    cfg: ClipConfig,
+    policy: precision.Policy = precision.DEFAULT,
+    class_idx: Optional[torch.Tensor] = None,   # (B, MC) class ids
+    num_patches: Optional[int] = None,
+) -> CamOutputs:
+    """GradCAMs for the given foreground classes of every image.  Returns
+    cams (B, MC, P) on the grid block [1:1+P]."""
+    b, l, _ = x11.shape
+    if class_idx is None:
+        class_idx = torch.arange(num_fg, device=x11.device).expand(b, num_fg)
+    a0, grads, attn_last, probs = acts_and_grads(
+        visual_params, logit_scale, x11, text_features, text_mask, valid,
+        class_idx, cfg, policy)
 
     pe = 1 + (num_patches if num_patches is not None else l - 1)
     vp = valid[:, 1:pe]
@@ -102,7 +124,7 @@ def gradcam_batch(
     cams = torch.matmul(weights, a0[:, 1:pe].float().transpose(1, 2))   # (B, MC, P)
     cams = torch.relu(cams)
     cams = _minmax_valid(cams, vp.bool()[:, None, :])
-    return CamOutputs(cams.detach(), attn_w.detach()[::mc], probs.detach()[::mc])
+    return CamOutputs(cams.detach(), attn_last, probs)
 
 
 def gradcam_single(visual_params, logit_scale, x11: torch.Tensor,

@@ -204,3 +204,21 @@ def load_config(path: Optional[str] = None, overrides: Optional[dict] = None) ->
     if overrides:
         cfg = _apply(cfg, overrides)
     return cfg
+
+
+def coco_config(**kw) -> Config:
+    """The reference COCO setup: 81 classes, 80k steps with the learned
+    affinity gating from step 40k, checkpoints every 10k past 40k (COCO
+    trains without mid-training validation, so ``eval_iters`` only sets the
+    save cadence), box threshold 0.7 and a seg-trans window of 10 layers.
+    ``kw`` overlays nested dicts as ``load_config``'s overrides do."""
+    cfg = Config()
+    cfg = dataclasses.replace(
+        cfg,
+        dataset=dataclasses.replace(cfg.dataset, name="coco", num_classes=81),
+        train=dataclasses.replace(
+            cfg.train, max_iters=80000, seg_trans_start_iter=40000,
+            ckpt_start_iter=40000, eval_iters=10000),
+        cam=dataclasses.replace(cfg.cam, bbox_threshold=0.7, seg_trans_layers=10),
+    )
+    return _apply(cfg, kw) if kw else cfg

@@ -5,7 +5,7 @@ Name lists come from ``<name_list_dir>/<split>.txt``, images from
 ``JPEGImages``, labels from ``SegmentationClassAug`` and image-level one-hot
 labels from ``cls_labels_onehot.npy``.  Each example carries its class set
 as a ``present_mask`` computed once from its label.  PIL is imported only
-where an image is read.
+where an image is decoded, so a tree already in the decoded cache needs none.
 """
 
 from __future__ import annotations
@@ -68,22 +68,22 @@ class VOCBase:
         return len(self.names)
 
     def read_image(self, name: str) -> np.ndarray:
-        from PIL import Image
         if self.cache_dir:
             p = os.path.join(self.cache_dir, name + ".npy")
             if os.path.exists(p):
                 return np.load(p, mmap_mode="r")
+        from PIL import Image
         img = np.asarray(Image.open(os.path.join(self.img_dir, name + ".jpg")).convert("RGB"))
         if self.cache_dir:
             np.save(os.path.join(self.cache_dir, name + ".npy"), img)
         return img
 
     def read_label(self, name: str) -> np.ndarray:
-        from PIL import Image
         if self.cache_dir:
             pc = os.path.join(self.cache_dir, name + "_lab.npy")
             if os.path.exists(pc):
                 return np.load(pc, mmap_mode="r")
+        from PIL import Image
         p = os.path.join(self.label_dir, name + ".png")
         if os.path.exists(p):
             lab = np.asarray(Image.open(p))

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import concurrent.futures as cf
+import logging
 import os
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -240,8 +241,7 @@ class Evaluator:
             os.makedirs(os.path.join(logits_dir, "logit"), exist_ok=True)
         it = range(len(starts))
         if progress:
-            from tqdm import tqdm
-            it = tqdm(it, ncols=100)
+            it = _progress(it)
         # one host thread builds batch i + 1 while the device runs batch i
         with cf.ThreadPoolExecutor(max_workers=1) as pool:
             pending = pool.submit(prepare, starts[0]) if starts else None
@@ -271,6 +271,22 @@ class Evaluator:
             if self.with_cam:
                 out["hists"]["cam"] = h_cam
         return out
+
+
+def _progress(it):
+    """A tqdm bar over ``it`` where tqdm imports, else one log line a batch."""
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        log = logging.getLogger("weclip_tpu_torch")
+
+        def logged():
+            for i in it:
+                yield i
+                log.info("evaluated batch %d / %d", i + 1, len(it))
+
+        return logged()
+    return tqdm(it, ncols=100)
 
 
 def _save_predictions(save_dir: str, examples, pred: torch.Tensor) -> None:

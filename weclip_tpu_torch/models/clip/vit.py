@@ -1,15 +1,18 @@
-"""Frozen CLIP ViT-B/16, vision side (port of weclip_tpu/models/clip/vit.py).
+"""Frozen CLIP ViT-B/16 and its text encoder (port of
+weclip_tpu/models/clip/vit.py).
 
 Parameters are nested dicts of tensors with the transformer blocks stacked
 on a leading axis, exactly as in the JAX package (so ``convert.py`` carries
 them across unchanged).  Tokens live on a padded grid with a validity mask;
 per-layer tokens and head-averaged attention maps are returned for the
-pseudo-label chain.  The text encoder, tokenizer and prompts are not ported
-yet (the class text embeddings are inputs).
+pseudo-label chain.  The text encoder runs once at start-up to embed the
+class prompts (models/clip/prompts.py), on the plain attention with a
+causal bias.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -75,15 +78,17 @@ def block_forward(
     policy: precision.Policy = precision.DEFAULT,
     want_attn: bool = True,
     allow_kernel: bool = True,
+    attn_bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """Pre-LN residual attention block.  Returns (x_out, head-mean attention
     (B, L, L) or None, ln_1 output).  On CUDA the attention runs the forward
     kernels (K1 with the map, K2 without), which hold no gradient;
-    ``allow_kernel=False`` takes the plain, differentiable attention."""
+    ``allow_kernel=False`` takes the plain, differentiable attention, and so
+    does a call with an additive ``attn_bias``."""
     a = layer_norm(x, p["ln_1"]["g"], p["ln_1"]["b"])
     attn_out, attn_w = mha_auto(a, _mha_params(p), n_heads, valid=valid,
                                 policy=policy, want_weights=want_attn,
-                                allow_kernel=allow_kernel)
+                                allow_kernel=allow_kernel, attn_bias=attn_bias)
     x = x + attn_out
     x = x + mlp_forward(p["mlp"], layer_norm(x, p["ln_2"]["g"], p["ln_2"]["b"]), policy)
     return x, attn_w, a
@@ -227,6 +232,36 @@ def vision_forward_frozen(
 
 
 # ---------------------------------------------------------------------------
+# text encoder
+# ---------------------------------------------------------------------------
+
+def causal_bias(l: int, device=None) -> torch.Tensor:
+    """Additive causal mask (1, 1, L, L): -inf above the diagonal."""
+    return torch.full((l, l), float("-inf"), device=device).triu(1)[None, None]
+
+
+@torch.no_grad()
+def encode_text(params: Params, tokens, cfg: ClipConfig,
+                policy: precision.Policy = precision.FP32) -> torch.Tensor:
+    """CLIP text encoder: tokens (N, context) ids -> (N, embed_dim) fp32,
+    the final-LayerNorm feature of each row's end token (its largest id)
+    projected.  Runs once at start-up to embed the class prompts, so it
+    defaults to fp32."""
+    emb = params["token_embedding"]
+    tokens = torch.as_tensor(tokens, dtype=torch.int64, device=emb.device)
+    x = emb[tokens].float() + params["positional_embedding"].float()[None]
+    bias = causal_bias(cfg.context_length, device=emb.device)
+    for i in range(cfg.transformer_layers):
+        x, _, _ = block_forward(block_params(params["blocks"], i), x,
+                                cfg.transformer_heads, policy=policy,
+                                want_attn=False, attn_bias=bias)
+    x = layer_norm(x, params["ln_final"]["g"], params["ln_final"]["b"])
+    eot = torch.argmax(tokens, dim=-1)
+    x = x[torch.arange(x.shape[0], device=x.device), eot]
+    return torch.matmul(x, params["text_projection"].float())
+
+
+# ---------------------------------------------------------------------------
 # initialization (CLIP's scheme)
 # ---------------------------------------------------------------------------
 
@@ -281,3 +316,27 @@ def init_vision_params(gen: torch.Generator, cfg: ClipConfig,
         "proj": _normal(gen, (w, cfg.embed_dim), scale),
     }
     return tree_map(lambda t: t.to(device), p)
+
+
+def init_text_params(gen: torch.Generator, cfg: ClipConfig,
+                     device: str = "cpu") -> Params:
+    """Randomly initialized text tower at the configured width (random
+    weights from ``gen``; not the JAX package's draws)."""
+    w = cfg.transformer_width
+    p = {
+        "token_embedding": _normal(gen, (cfg.vocab_size, w), 0.02),
+        "positional_embedding": _normal(gen, (cfg.context_length, w), 0.01),
+        "blocks": stack_blocks([_init_block(gen, w, cfg.transformer_layers)
+                                for _ in range(cfg.transformer_layers)]),
+        "ln_final": {"g": torch.ones(w), "b": torch.zeros(w)},
+        "text_projection": _normal(gen, (w, cfg.embed_dim), w ** -0.5),
+    }
+    return tree_map(lambda t: t.to(device), p)
+
+
+def init_clip_params(gen: torch.Generator, cfg: ClipConfig,
+                     device: str = "cpu") -> Params:
+    """Both towers and the logit scale log(1 / 0.07)."""
+    return {"visual": init_vision_params(gen, cfg, device),
+            "text": init_text_params(gen, cfg, device),
+            "logit_scale": torch.tensor(math.log(1.0 / 0.07), device=device)}

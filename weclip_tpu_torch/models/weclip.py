@@ -15,6 +15,7 @@ from weclip_tpu_torch.core import precision
 from weclip_tpu_torch.core.config import Config
 from weclip_tpu_torch.models import heads
 from weclip_tpu_torch.models.clip import vit
+from weclip_tpu_torch.models.clip.prompts import class_tables
 from weclip_tpu_torch.models.comer import comer_forward, init_comer_params
 from weclip_tpu_torch.ops.resize import resize_bilinear
 from weclip_tpu_torch.refine import affinity as aff
@@ -233,8 +234,8 @@ def build_frozen_state(visual: Dict[str, Any], logit_scale, fg_text, bg_text,
             "bg_text": t(bg_text)}
 
 
-# background prompt-table sizes (weclip_tpu/models/clip/prompts.py)
-NUM_BG = {"voc": 25, "coco": 23}
+# background prompt-table sizes
+NUM_BG = {name: len(class_tables(name)[1]) for name in ("voc", "coco")}
 
 
 def random_frozen_state(cfg: Config, seed: int = 0, device="cpu"):

@@ -3,8 +3,9 @@ map (port of weclip_tpu/ops/attention.py).
 
 ``mha_with_weights`` is the plain formulation (the JAX package's XLA path).
 ``mha_auto`` sends CUDA tensors to the hand-written kernels
-(ops/attention_kernels.py) and everything else, or a caller that asks for
-gradients (``allow_kernel=False``), to the plain formulation.
+(ops/attention_kernels.py) and everything else, a caller that asks for
+gradients (``allow_kernel=False``) or one with an additive bias (the text
+encoder's causal mask), to the plain formulation.
 Layout is batch-first (B, L, D); matmuls take the policy's compute dtype
 with fp32 accumulation; the softmax is fp32."""
 
@@ -44,11 +45,14 @@ def mha_with_weights(
     n_heads: int,
     valid: Optional[torch.Tensor] = None,
     policy: precision.Policy = precision.DEFAULT,
+    attn_bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Self-attention returning (output (B,L,D), head-mean weights (B,L,L)).
 
     valid: optional (B, L) token-validity mask.  Invalid keys get zero
-    attention mass; rows of invalid queries are zeroed in both outputs."""
+    attention mass; rows of invalid queries are zeroed in both outputs.
+    attn_bias: optional additive bias on the fp32 scores, broadcast to
+    (B, H, L, L) (the text encoder's causal mask)."""
     b, l, d = x.shape
     hd = d // n_heads
     if hd * n_heads != d:
@@ -61,6 +65,8 @@ def mha_with_weights(
     v = v.reshape(b, l, n_heads, hd)
 
     scores = torch.einsum("bqhe,bkhe->bhqk", q.float(), k.float())
+    if attn_bias is not None:
+        scores = scores + attn_bias.float()
     if valid is not None:
         kmask = valid.bool()[:, None, None, :]
         scores = scores.masked_fill(~kmask, float("-inf"))
@@ -94,16 +100,19 @@ def mha_auto(
     policy: precision.Policy = precision.DEFAULT,
     want_weights: bool = True,
     allow_kernel: bool = True,
+    attn_bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """CUDA tensors go to the forward kernels (K1 with the map, K2
-    without); CPU tensors, and every call with ``allow_kernel=False``, to
+    without); CPU tensors, every call with ``allow_kernel=False`` and every
+    call with an ``attn_bias`` (the kernels take a key mask, not a bias) to
     ``mha_with_weights``.  The forward kernels have no gradient: a
     differentiable caller passes ``allow_kernel=False`` (the JAX package's
     ``allow_pallas=False``) or uses
     ``attention_kernels.mha_with_weights_fused``."""
-    if x.is_cuda and allow_kernel:
+    if x.is_cuda and allow_kernel and attn_bias is None:
         from weclip_tpu_torch.ops.attention_kernels import mha_with_weights_kernel
         return mha_with_weights_kernel(x, p, n_heads, valid=valid,
                                        policy=policy, want_weights=want_weights)
-    out, attn = mha_with_weights(x, p, n_heads, valid=valid, policy=policy)
+    out, attn = mha_with_weights(x, p, n_heads, valid=valid, policy=policy,
+                                 attn_bias=attn_bias)
     return out, (attn if want_weights else None)

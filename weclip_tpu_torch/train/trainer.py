@@ -14,10 +14,18 @@ optimizer and scheduler state, the step, the validation count, and the data
 stream at the batch an uninterrupted run would read next (the JAX trainer
 restarts the stream), so a resumed run computes what an uninterrupted one
 does.
+
+``build_frozen`` gives the frozen state: the CLIP checkpoint at
+``clip.pretrained_path`` with the class prompts encoded by its text tower,
+or random weights where there is none.  Each logged window also goes to
+``work_dir.dir/work_dir.tb_logger_dir/scalars.jsonl`` (utils/tb.py), and
+``profile_steps`` traces a range of steps with ``torch.profiler`` into
+``work_dir.dir/profile``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time
@@ -31,11 +39,43 @@ from weclip_tpu_torch.core.compaction import compact_classes, pick_bucket
 from weclip_tpu_torch.core.config import Config
 from weclip_tpu_torch.data.loader import PrefetchLoader
 from weclip_tpu_torch.models import weclip
+from weclip_tpu_torch.models.clip import loader as clip_loader
+from weclip_tpu_torch.models.clip import prompts
 from weclip_tpu_torch.models.clip.vit import pos_emb_host
 from weclip_tpu_torch.train import checkpoint
 from weclip_tpu_torch.train import step as step_mod
 
 log = logging.getLogger("weclip_tpu_torch")
+
+
+def build_frozen(cfg: Config, rng_seed: int = 0, device="cuda"):
+    """(frozen, clip_params, cfg) on ``device``.
+
+    With a checkpoint at ``cfg.clip.pretrained_path`` (a file, or a name or
+    URL ``clip/loader.py`` fetches): its weights, the clip config taken from
+    its shapes, and the class text features of ``cfg.dataset.name``'s prompt
+    tables encoded by its text tower (the tokenizer's merges file from
+    ``WECLIP_BPE_PATH``).  Without one: ``weclip.random_frozen_state`` of
+    ``rng_seed``, with a warning; ``clip_params`` then holds the vision
+    tower and the logit scale only."""
+    if torch.device(device).type == "cuda":
+        precision.strict_matmul()
+    path = cfg.clip.pretrained_path
+    if clip_loader.is_fetchable(path) or (path and os.path.exists(path)):
+        from weclip_tpu_torch.models.clip.tokenizer import Tokenizer
+        clip_params, clip_cfg = clip_loader.load_clip(
+            path, cfg.clip, expected_sha256=cfg.clip.pretrained_sha256, device=device)
+        cfg = dataclasses.replace(cfg, clip=clip_cfg)
+        fg, bg = prompts.build_text_features(
+            cfg.dataset.name, clip_params["text"], cfg.clip, Tokenizer(),
+            template=cfg.clip.prompt_template)
+        frozen = weclip.build_frozen_state(clip_params["visual"], clip_params["logit_scale"],
+                                           fg, bg, device)
+    else:
+        log.warning("no CLIP checkpoint at %r — random init (dev only)", path)
+        frozen = weclip.random_frozen_state(cfg, seed=rng_seed, device=device)
+        clip_params = {"visual": frozen["visual"], "logit_scale": frozen["logit_scale"]}
+    return frozen, clip_params, cfg
 
 
 def make_batcher(cfg: Config, frozen: Dict, device
@@ -79,22 +119,24 @@ def build_dataset(cfg: Config):
 
 def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cuda",
           frozen: Optional[Dict] = None, resume: bool = False,
-          val_dataset=None) -> step_mod.TrainState:
+          val_dataset=None, profile_steps: Optional[Tuple[int, int]] = None
+          ) -> step_mod.TrainState:
     """Train the heads (and CoMer where enabled) to step ``max_steps``
     (default ``train.max_iters``).  ``dataset``: examples with ``img``
     ((3, crop, crop) float32, normalized) and ``present_mask`` ((C_fg,)
     bool), by default the training split of ``cfg.dataset``; ``val_dataset``:
     examples as ``evalx/runner.py::Evaluator.run`` reads them.  ``frozen``
-    defaults to the random frozen state of seed ``train.seed``.
+    defaults to ``build_frozen(cfg, train.seed)``.
     Checkpoints go to ``work_dir.dir/work_dir.ckpt_dir``.  Logs the window
     means of the losses and the pseudo-label accuracy every
-    ``train.log_iters`` steps, and the validation scores."""
+    ``train.log_iters`` steps, and the validation scores.
+    ``profile_steps=(start, end)`` traces steps start..end."""
     pc = cfg.precision
     policy = precision.make_policy(pc.compute_dtype, pc.param_dtype, pc.softmax_dtype)
     if torch.device(device).type == "cuda":
         precision.strict_matmul()
     if frozen is None:
-        frozen = weclip.random_frozen_state(cfg, seed=cfg.train.seed, device=device)
+        frozen, _, cfg = build_frozen(cfg, cfg.train.seed, device=device)
     if dataset is None:
         dataset = build_dataset(cfg)
     ckpt_dir = os.path.join(cfg.work_dir.dir, cfg.work_dir.ckpt_dir)
@@ -117,9 +159,14 @@ def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cu
     bsz = cfg.train.samples_per_gpu
     total = max_steps or cfg.train.max_iters
     loader = PrefetchLoader(dataset, bsz, seed=cfg.train.seed, start=state.step)
+    from weclip_tpu_torch.utils.tb import ScalarWriter
+    writer = ScalarWriter(os.path.join(cfg.work_dir.dir, cfg.work_dir.tb_logger_dir))
+    prof = None
     msum, n_window, t_window = None, 0, time.perf_counter()
     try:
         for n_iter in range(state.step, total):
+            if profile_steps and n_iter == profile_steps[0]:
+                prof = _start_profile(device)
             batch, ci, ca = to_device(next(loader))
             state, m = step_fn(state, frozen, batch, rng=cfg.train.seed + 1,
                                cls_idx=ci, cls_active=ca,
@@ -127,12 +174,18 @@ def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cu
             msum = m if msum is None else step_mod.StepMetrics(
                 *(a + b for a, b in zip(msum, m)))
             n_window += 1
+            if prof is not None and n_iter == profile_steps[1]:
+                prof = _stop_profile(prof, cfg.work_dir.dir)
             if (n_iter + 1) % cfg.train.log_iters == 0 or n_iter + 1 == total:
-                means = [float(x) / n_window for x in msum]
+                means = step_mod.StepMetrics(*(float(x) / n_window for x in msum))
                 rate = n_window * bsz / (time.perf_counter() - t_window)
                 log.info("iter %d/%d; img/s %.2f; loss %.4f; seg_loss %.4f; "
                          "attn_loss %.4f; pseudo_acc %.4f", n_iter + 1, total, rate,
                          *means)
+                writer.add_scalars("train", {
+                    "seg_loss": means.seg_loss, "attn_loss": means.attn_loss,
+                    "pseudo_mAcc": means.pseudo_acc, "imgs_per_sec": rate,
+                }, n_iter + 1)
                 msum, n_window, t_window = None, 0, time.perf_counter()
             if (n_iter + 1) % cfg.train.eval_iters == 0:
                 if n_iter + 1 > cfg.train.ckpt_start_iter:
@@ -147,8 +200,34 @@ def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cu
                     val_forward_calls += len(val_dataset)
     finally:
         loader.close()
+        writer.close()
+        if prof is not None:
+            _stop_profile(prof, cfg.work_dir.dir)
     checkpoint.save(ckpt_dir, total, state.params, state.optimizer, state.scheduler)
     return state
+
+
+def _start_profile(device):
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, work_dir: str) -> None:
+    """Stops the trace and writes it as ``<work_dir>/profile/trace.json``
+    (a Chrome trace); returns None."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    out = os.path.join(work_dir, "profile")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    log.info("profile written to %s", out)
+    return None
 
 
 def validate(cfg: Config, params, frozen, val_dataset, policy: precision.Policy,

@@ -1,8 +1,11 @@
 """Image helpers (port of the parts of weclip_tpu/utils/imutils.py that the
 inference and evaluation paths read): grayscale promotion, the VOC palette
-and prediction PNGs.  PIL is imported only where a PNG is written."""
+and prediction PNGs, written without an image package."""
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -38,8 +41,25 @@ def encode_cmap(label: np.ndarray) -> np.ndarray:
     return _CMAP[np.asarray(label, np.int64) % 256]
 
 
+def write_png(path: str, arr: np.ndarray) -> None:
+    """An (H, W) or (H, W, 3) uint8 array as an 8-bit grayscale or RGB PNG,
+    with the standard library's zlib (no image package needed)."""
+    arr = np.ascontiguousarray(arr, np.uint8)
+    h, w = arr.shape[:2]
+    color = 2 if arr.ndim == 3 else 0
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, -1)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
 def save_prediction(path: str, pred: np.ndarray, cmap: bool = False) -> None:
     """A class-id mask as an 8-bit grayscale PNG, or in the VOC palette."""
-    from PIL import Image
-    arr = encode_cmap(pred) if cmap else np.asarray(pred, np.uint8)
-    Image.fromarray(arr).save(path)
+    write_png(path, encode_cmap(pred) if cmap else np.asarray(pred, np.uint8))
