@@ -63,10 +63,22 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
 14. ``WeCLIPPipeline.cam`` by each of the 8 CAM methods (K1, and K3 for
    the gradient methods), card against CPU in fp32 through ``cam_single``,
    and ``generate_cams`` over the 8 cached images;
-15. one ``{"kernels": [...]}`` line, then as the last line
+15. the dense CRF: K7 (``csrc/crf.cu``, the windowed bilateral message)
+   against its plain twin at (8, 81, 160, 160) and (8, 21, 128, 128), r 32,
+   timed beside its bound; ``mean_field_crf`` on the card against the CPU
+   in fp32 (dense (21, 512, 512) at stride 4, windowed (81, 640, 640) at
+   stride 16); ``Evaluator.run(crf=True)`` on VOC-size images with
+   ``crf_impl`` native (2 of them) and jax (8), and on 8 COCO-size images
+   with jax (K7's path), histogram totals equal to the labelled pixels; the
+   ``eval_voc`` CLI with ``--crf --crf_impl jax``;
+16. data parallel: two gloo ranks sharing the card, spawned by
+   ``torch.multiprocessing``: 3 fp32 train steps at full width (crop 320, 2
+   crops a rank) against one process at batch 4, and ``Evaluator.run``'s
+   summed histograms against one process's; a one-rank NCCL all-reduce;
+17. one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counters are reset just before each call of phases 4-14 and read
+Launch counters are reset just before each call of phases 4-15 and read
 just after it; every kernel must have launched on that main path.  Every
 time is printed with the card's name and power limit.
 """
@@ -1968,6 +1980,459 @@ def run_cam_surface(cfg_path: str, work: str, card: str):
                       "generate_cams_s": gen_s}
 
 
+# K7's path shapes: (B, C, hs, ws, r, what).  COCO evaluation at stride 4
+# (canvas 640, 81 classes) is the windowed path Evaluator.run takes; the
+# 21-channel VOC canvas at stride 4 (512) is held too.
+K7_SHAPES = ((8, 81, 160, 160, 32, "COCO canvas 640, stride 4"),
+             (8, 21, 128, 128, 32, "VOC canvas 512, stride 4"))
+
+
+def k7_bound(b: int, c: int, hs: int, ws: int, r: int):
+    """K7's least time: each input read once and each output written once;
+    per in-bound (pixel, offset) pair of this grid, 2 C flops of the message
+    and 12 of the weight (3 differences, 3 squares, 2 sums, the distance,
+    its sum, the scale and the exponential)."""
+    def along(n):
+        return sum(min(r, n - 1 - y) - max(-r, -y) + 1 for y in range(n))
+    pairs = b * along(hs) * along(ws)
+    n_bytes = 4 * (2 * b * c * hs * ws + 3 * b * hs * ws + b * hs * ws)
+    return bound_ms(n_bytes, pairs * (2 * c + 12), "fp32"), pairs
+
+
+def check_crf_kernel(records, reps: int = 5):
+    """K7 against its plain twin on the card at ``K7_SHAPES`` (the message
+    and the normalizer, each within 1e-5 of its largest value), timed
+    beside the twin and its bound; appends K7's record."""
+    import torch
+
+    from weclip_tpu_torch.refine import crf_kernels as ck
+
+    sig = 64.0 / 4                       # bi_xy_std / stride
+    checks, times, shapes = [], {}, []
+    for b, c, hs, ws, r, what in K7_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(7)
+        q = torch.rand((b, c, hs, ws), generator=g, device="cuda")
+        q = q / q.sum(dim=1, keepdim=True)
+        img = torch.rand((b, 3, hs, ws), generator=g, device="cuda") * (255.0 / 5.0)
+        acc, norm = ck.window_message(q, img, sig, r)
+        _, norm_only = ck.window_message(None, img, sig, r)
+        # the twin takes seconds a call: its time is that of this one call
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref_acc, ref_norm = ck.window_message_plain(q, img, sig, r)
+        end.record()
+        torch.cuda.synchronize()
+        plain = start.elapsed_time(end)
+        for name, got, ref in (("message", acc, ref_acc), ("normalizer", norm, ref_norm),
+                               ("normalizer alone", norm_only, ref_norm)):
+            checks.append((f"{name} {[b, c, hs, ws]} r {r}", max_err(got, ref),
+                           1e-5 * float(ref.abs().max())))
+        ms = cuda_ms(lambda: ck.window_message(q, img, sig, r), reps)
+        bound, pairs = k7_bound(b, c, hs, ws, r)
+        times[what] = {"shape": [b, c, hs, ws], "r": r, "ms": ms, "plain_ms": plain,
+                       "bound_ms": bound[0], "bound_by": bound[1], "pairs": pairs}
+        shapes.append([b, c, hs, ws])
+        print(f"[kernel] crf_window {what} {[b, c, hs, ws]} r {r}: {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), {pairs} in-bound "
+              f"pixel-offsets", flush=True)
+        del q, img, acc, norm, norm_only, ref_acc, ref_norm
+    main = times[K7_SHAPES[0][5]]
+    record_kernel(records, "crf_window", "weclip_tpu_torch/csrc/crf.cu",
+                  "weclip_tpu/refine/crf.py:218 (mean_field_crf_jax windowed bilateral, "
+                  "an XLA fori_loop; no pallas_call)",
+                  checks, main["ms"], main["plain_ms"], (main["bound_ms"], main["bound_by"]),
+                  None, shapes, timed_shape=K7_SHAPES[0][5], ms_by_shape=times,
+                  resources=kernel_resources("crf"))
+    torch.cuda.empty_cache()
+
+
+def crf_inputs(c: int, size: int, seed: int):
+    """(probs (C, S, S), image (3, S, S) float 0..255) on the host: a
+    VOC-like image of a few rectangles and noise, and the softmax of noisy
+    logits that favour each rectangle's class."""
+    rng = np.random.default_rng(seed)
+    img = np.full((size, size, 3), 90.0)
+    logits = rng.normal(0.0, 1.0, (c, size, size))
+    for _ in range(4):
+        y0, x0 = rng.integers(0, size // 2, 2)
+        k = int(rng.integers(1, c))
+        img[y0:y0 + size // 3, x0:x0 + size // 3] = rng.integers(0, 256, 3)
+        logits[k, y0:y0 + size // 3, x0:x0 + size // 3] += 1.5
+    img = np.clip(img + rng.normal(0.0, 12.0, img.shape), 0, 255)
+    p = np.exp(logits - logits.max(0))
+    return ((p / p.sum(0)).astype(np.float32),
+            img.transpose(2, 0, 1).astype(np.float32))
+
+
+def compare_mean_field(what, probs, img, cfg, stride, dense_max, reference):
+    """``mean_field_crf`` on the card against ``reference(probs, img)``:
+    probabilities within 1e-4, argmax agreement at least 0.999; returns the
+    card's time and the readings."""
+    import torch
+
+    from weclip_tpu_torch.refine.crf import mean_field_crf
+
+    p, im = torch.from_numpy(probs).cuda(), torch.from_numpy(img).cuda()
+    run = lambda: mean_field_crf(p, im, cfg, bi_stride=stride, dense_max_points=dense_max)
+    got = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = reference(probs, img).float().cpu()
+    ref_s = time.perf_counter() - t0
+    got = got.cpu()
+    err = max_err(got, ref)
+    agree = float((got.argmax(0) == ref.argmax(0)).float().mean())
+    moved = float((ref.argmax(0) != torch.from_numpy(probs).argmax(0)).float().mean())
+    print(f"[crf] mean_field_crf {what} {list(probs.shape)} stride {stride}: card "
+          f"{ms:.1f} ms, reference {ref_s:.1f} s; max |dp| {err:.3e} (tol 1e-4), argmax "
+          f"agreement {agree:.6f} (need >= 0.999); the CRF moved {moved:.4f} of the "
+          f"unary argmax", flush=True)
+    if not err <= 1e-4 or agree < 0.999:
+        raise AssertionError(f"mean_field_crf {what}: {err}, {agree}")
+    return {"card_ms": ms, "reference_s": ref_s, "max_abs_err": err, "argmax_agreement": agree,
+            "moved_share": moved}
+
+
+def coco_examples(n: int, seed: int):
+    """``n`` synthetic labelled COCO-size examples (up to 640 a side, 81
+    classes) for ``Evaluator.run``."""
+    rng = np.random.default_rng(seed)
+    sizes = [(480, 640), (640, 427), (427, 640), (640, 640)]
+    out = []
+    for i in range(n):
+        oh, ow = sizes[i % len(sizes)]
+        label = np.zeros((oh, ow), np.int32)
+        for _ in range(3):
+            y0, x0 = int(rng.integers(0, oh // 2)), int(rng.integers(0, ow // 2))
+            label[y0:y0 + oh // 3, x0:x0 + ow // 3] = int(rng.integers(1, 81))
+        label[-8:] = 255
+        ids = np.unique(label)
+        present = np.zeros(80, bool)
+        present[ids[(ids > 0) & (ids < 81)] - 1] = True
+        out.append({"name": f"coco{i}", "label": label, "present_mask": present,
+                    "img_raw": rng.integers(0, 256, (oh, ow, 3)).astype(np.uint8)})
+    return out
+
+
+def run_crf(records, card: str):
+    """Phase 15: the dense CRF.  K7 against its twin (``check_crf_kernel``);
+    ``mean_field_crf`` on the card against the CPU in fp32, dense at
+    (21, 512, 512) stride 4 and windowed at (81, 640, 640) stride 16 (the
+    CPU's window sum at stride 4 would take minutes); ``Evaluator.run(crf=
+    True)`` on VOC-size images with ``crf_impl`` native (2 images: the
+    lattice takes seconds an image on the host) and jax (8), and on 8
+    COCO-size images with jax (the windowed path: K7), every ``crf_seg``
+    histogram totalling the labelled pixels.  Returns launches per call and
+    the measurements."""
+    import torch
+
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.core.config import Config, CrfConfig, coco_config
+    from weclip_tpu_torch.evalx.runner import Evaluator, make_prep
+    from weclip_tpu_torch.models import weclip
+    from weclip_tpu_torch.refine import crf as crf_mod
+
+    check_crf_kernel(records)
+    crf_cfg = CrfConfig()
+    out = {}
+    on_cpu = lambda s, d: (lambda p, im: crf_mod.mean_field_crf(
+        torch.from_numpy(p), torch.from_numpy(im), crf_cfg, bi_stride=s, dense_max_points=d))
+    probs, img = crf_inputs(21, 512, seed=21)
+    out["dense_21x512_stride4"] = compare_mean_field(
+        "dense", probs, img, crf_cfg, 4, 16384, on_cpu(4, 16384))
+    probs, img = crf_inputs(81, 640, seed=81)
+    out["windowed_81x640_stride16"] = compare_mean_field(
+        "windowed", probs, img, crf_cfg, 16, 0, on_cpu(16, 0))
+
+    # the spatial term: the separable convolution the port runs, against the
+    # band-matrix product the JAX package runs, at (81, 640, 640)
+    x = torch.from_numpy(probs).cuda()
+    r_pos = max(int(round(3 * crf_cfg.pos_xy_std)), 1)
+    idx = torch.arange(640, dtype=torch.float32, device="cuda")
+    d = idx[:, None] - idx[None, :]
+    band = torch.where(d.abs() <= r_pos, torch.exp(-0.5 * (d / crf_cfg.pos_xy_std) ** 2),
+                       torch.zeros((), device="cuda"))
+    band_fn = lambda: torch.matmul(torch.matmul(band, x), band.t())
+    out["spatial_term_81x640"] = {
+        "conv_ms": cuda_ms(lambda: crf_mod._sep_gauss(x, crf_cfg.pos_xy_std, r_pos), 5),
+        "band_product_ms": cuda_ms(band_fn, 5),
+        "max_abs_diff": max_err(crf_mod._sep_gauss(x, crf_cfg.pos_xy_std, r_pos), band_fn())}
+    print(f"[crf] spatial term (81, 640, 640): separable {2 * r_pos + 1}-tap convolution "
+          f"{out['spatial_term_81x640']['conv_ms']:.3f} ms, band-matrix product "
+          f"{out['spatial_term_81x640']['band_product_ms']:.3f} ms, max |diff| "
+          f"{out['spatial_term_81x640']['max_abs_diff']:.3e}; on {card}", flush=True)
+    del x, band, d, idx
+
+    launches = {}
+    voc = labelled_voc_examples(8, seed=11)
+    coco = coco_examples(8, seed=12)
+    for name, cfg, examples, max_ori, impl in (
+            ("evaluator_crf_native", Config(), voc[:2], 512, "native"),
+            ("evaluator_crf_jax", Config(), voc, 512, "jax"),
+            ("evaluator_crf_jax_coco", coco_config(), coco, 640, "jax")):
+        k = cfg.dataset.num_classes
+        params = weclip.init_trainable_params(torch.Generator().manual_seed(0), cfg, "cuda")
+        frozen = weclip.random_frozen_state(cfg, seed=0, device="cuda")
+        ev = Evaluator(cfg, make_prep(cfg, max_ori=max_ori, resize_long=cfg.eval.resize_long),
+                       frozen["visual"]["positional_embedding"].cpu().numpy(),
+                       with_cam=name != "evaluator_crf_jax_coco", device="cuda")
+        if impl == "jax":                # warm: the device programs' first calls
+            ev.run(params, frozen, examples[:1], crf=True, crf_impl=impl)
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = ev.run(params, frozen, examples, crf=True, crf_impl=impl, return_hists=True)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches[name] = dict(kernels.launches)
+        n_gt = sum(int(((ex["label"] >= 0) & (ex["label"] < k)).sum()) for ex in examples)
+        totals = {key: int(h.sum()) for key, h in res["hists"].items()}
+        t0 = time.perf_counter()
+        ev.run(params, frozen, examples, return_hists=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        out[name] = {"run_ms": run_s * 1e3, "run_without_crf_ms": plain_s * 1e3,
+                     "crf_ms_per_image": (run_s - plain_s) * 1e3 / len(examples),
+                     "crf_seg_miou": float(res["crf_seg"]["miou"]),
+                     "msc_seg_miou": float(res["msc_seg"]["miou"]),
+                     "hist_totals": totals, "labelled_pixels": n_gt}
+        print(f"[crf] Evaluator.run(crf=True, crf_impl={impl!r}) over {len(examples)} "
+              f"images (canvas {ev.prep.canvas_out}): {run_s * 1e3:.1f} ms, without the CRF "
+              f"{plain_s * 1e3:.1f} ms; crf_seg mIoU {out[name]['crf_seg_miou']:.4f} (msc "
+              f"{out[name]['msc_seg_miou']:.4f}); histogram totals {totals} (labelled "
+              f"{n_gt}); launches {json.dumps(launches[name])}; on {card}", flush=True)
+        if any(t != n_gt for t in totals.values()) or "crf_seg" not in totals:
+            raise AssertionError(f"{name}: histogram totals {totals} != {n_gt}")
+        del params, frozen, ev
+        torch.cuda.empty_cache()
+    if not launches["evaluator_crf_jax_coco"]["crf_window"]:
+        raise AssertionError("K7 did not launch on the COCO crf_impl='jax' path")
+    return launches, out
+
+
+def run_crf_cli(cfg_path: str, model_path: str, card: str):
+    """The end of phase 15: the ``eval_voc`` CLI with ``--crf --crf_impl
+    jax`` on phase 13's tree and checkpoints (8 images), its ``crf_seg``
+    histogram totalling the labelled pixels.  Returns launches of the call
+    and the measurements."""
+    import torch
+
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.cli import eval_voc
+    from weclip_tpu_torch.evalx.runner import Evaluator
+
+    launches, out = {}, {}
+    runs = []
+    orig_run = Evaluator.run
+
+    def run(self, *args, **kw):
+        res = orig_run(self, *args, **dict(kw, return_hists=True))
+        runs.append(res)
+        return res
+
+    Evaluator.run = run
+    try:
+        with cli_logging():
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            scores = eval_voc.main(["--config", cfg_path, "--model_path", model_path, "--crf",
+                                    "--crf_impl", "jax",
+                                    "--work_dir", os.path.join(os.path.dirname(cfg_path),
+                                                               "crf_out"),
+                                    "--device", "cuda"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches["eval_voc_cli_crf"] = dict(kernels.launches)
+    finally:
+        Evaluator.run = orig_run
+    hist = runs[-1]["hists"]["crf_seg"]
+    n_gt = int(runs[-1]["hists"]["msc_seg"].sum())
+    out["eval_voc_cli_crf"] = {"call_s": cli_s, "crf_seg_miou": float(scores["crf_seg"]["miou"]),
+                               "crf_hist_total": int(hist.sum()), "labelled_pixels": n_gt}
+    print(f"[crf] eval_voc --crf --crf_impl jax over 8 cached images: {cli_s:.2f} s, "
+          f"crf_seg mIoU "
+          f"{out['eval_voc_cli_crf']['crf_seg_miou']:.4f}, crf histogram total "
+          f"{int(hist.sum())} (labelled {n_gt}); on {card}", flush=True)
+    if int(hist.sum()) != n_gt or not math.isfinite(float(scores["crf_seg"]["pAcc"])):
+        raise AssertionError(f"eval_voc --crf: {out['eval_voc_cli_crf']}")
+    return launches, out
+
+
+# -- phase 16: data parallel ---------------------------------------------------
+
+DP_WORLD = 2
+
+
+def dp_config():
+    """Full ViT-B/16 width, fp32, crop 320, 2 crops a rank; warm-up off and
+    the rate at 1e-5, so that the steps move the parameters without the
+    loss running away (at the full rate of 2e-4 it grows six-fold in three
+    steps on this random model)."""
+    import dataclasses
+
+    from weclip_tpu_torch.core.config import Config
+    cfg = Config()
+    return dataclasses.replace(
+        cfg, precision=dataclasses.replace(cfg.precision, compute_dtype="float32"),
+        optimizer=dataclasses.replace(cfg.optimizer, learning_rate=1e-5, warmup_iter=0),
+        train=dataclasses.replace(cfg.train, samples_per_gpu=2),
+        eval=dataclasses.replace(cfg.eval, batch_images=2))
+
+
+def block_labels(b: int, size: int, num_classes: int, seed: int):
+    """(b, size, size) int64 labels: a random class per 32 x 32 block and
+    one block row of ignore (255), the layout of a pseudo label."""
+    rng = np.random.default_rng(seed)
+    g = size // 32
+    lab = rng.integers(0, num_classes, (b, g, g))
+    lab[:, 0] = 255
+    return np.repeat(np.repeat(lab, 32, axis=1), 32, axis=2).astype(np.int64)
+
+
+def dp_steps(mesh, rows, steps: int = 3):
+    """``steps`` fp32 train steps over ``rows`` of each global batch of 4
+    on the card: (losses, first-step gradients on the host, seconds).  The
+    steps train against fixed block labels (the step's ``pseudo``), so that
+    a pixel whose label flips in the CAM chain between a batch of 2 and one
+    of 4 does not stand in for a difference in the reduction."""
+    import torch
+
+    from weclip_tpu_torch.core import precision
+    from weclip_tpu_torch.models import weclip
+    from weclip_tpu_torch.train import step as step_mod
+    from weclip_tpu_torch.train.trainer import make_batcher
+
+    cfg = dp_config()
+    frozen = weclip.random_frozen_state(cfg, seed=0, device="cuda")
+    state = step_mod.create_train_state(torch.Generator().manual_seed(1), cfg, "cuda")
+    step_fn = step_mod.make_train_step(cfg, precision.FP32, mesh)
+    to_device = make_batcher(cfg, frozen, "cuda", mesh)
+    losses, grads = [], None
+    t0 = time.perf_counter()
+    for s in range(steps):
+        host = synthetic_train_batch(cfg, 4, seed=40 + s)
+        batch, ci, ca = to_device({k: v[rows] for k, v in host.items()})
+        pseudo = torch.from_numpy(block_labels(4, cfg.dataset.crop_size,
+                                               cfg.dataset.num_classes, 50 + s)[rows])
+        state, m = step_fn(state, frozen, batch, rng=9, cls_idx=ci, cls_active=ca,
+                           pseudo=pseudo.cuda())
+        losses.append(float(m.loss))
+        if grads is None:
+            grads = [(n, t.grad.cpu()) for n, t in named_leaves(state.params)]
+    torch.cuda.synchronize()
+    return losses, grads, time.perf_counter() - t0
+
+
+def dp_evaluate():
+    """``Evaluator.run`` msc-flip over phase 10's 8 images (2 a batch):
+    the int64 histograms and seconds."""
+    import torch
+
+    from weclip_tpu_torch.evalx.runner import Evaluator, make_prep
+    from weclip_tpu_torch.models import weclip
+    from weclip_tpu_torch.core.config import Config
+    import dataclasses
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, eval=dataclasses.replace(cfg.eval, batch_images=2))
+    params = weclip.init_trainable_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    frozen = weclip.random_frozen_state(cfg, seed=0, device="cuda")
+    ev = Evaluator(cfg, make_prep(cfg, max_ori=512, resize_long=cfg.eval.resize_long),
+                   frozen["visual"]["positional_embedding"].cpu().numpy(), device="cuda")
+    t0 = time.perf_counter()
+    res = ev.run(params, frozen, labelled_voc_examples(8, seed=11), return_hists=True)
+    torch.cuda.synchronize()
+    return res["hists"], time.perf_counter() - t0
+
+
+def dp_child(rank: int, init_file: str, out_dir: str):
+    """One rank of phase 16: gloo over a ``file://`` rendezvous, the card
+    shared with the other rank."""
+    import torch
+    import torch.distributed as dist
+
+    from weclip_tpu_torch.core import precision
+    from weclip_tpu_torch.parallel import mesh as meshlib
+
+    precision.strict_matmul()
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=DP_WORLD)
+    try:
+        mesh = meshlib.make_mesh(DP_WORLD)
+        losses, grads, step_s = dp_steps(mesh, slice(2 * rank, 2 * rank + 2))
+        hists, eval_s = dp_evaluate()
+        torch.save({"losses": losses, "grads": grads, "hists": hists, "step_s": step_s,
+                    "eval_s": eval_s}, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_data_parallel(work: str, card: str):
+    """Phase 16: two gloo ranks on the one card, spawned by
+    ``torch.multiprocessing``: 3 fp32 train steps at full width (crop 320, 2
+    crops a rank) against one process at batch 4 (losses within 1e-4,
+    first-step gradients within 1e-5 of each leaf's largest), and
+    ``Evaluator.run`` over 8 images whose summed histograms equal one
+    process's; then a one-rank NCCL group's all-reduce on the card.
+    Returns the measurements."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from weclip_tpu_torch.core import precision
+
+    out_dir = os.path.join(work, "dp")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    mp.spawn(dp_child, args=(os.path.join(out_dir, "rendezvous"), out_dir),
+             nprocs=DP_WORLD, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_WORLD)]
+    precision.strict_matmul()
+    losses, grads, step_s = dp_steps(None, slice(0, 4))
+    hists, eval_s = dp_evaluate()
+    loss_err = max(abs(a - b) for r in ranks for a, b in zip(r["losses"], losses))
+    grad_rel = max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                   for r in ranks for (_, g), (_, w) in zip(r["grads"], grads))
+    hist_equal = all(np.array_equal(r["hists"][k], hists[k]) for r in ranks for k in hists)
+    hist_diff = {k: int(np.abs(ranks[0]["hists"][k] - hists[k]).sum()) // 2 for k in hists}
+
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(out_dir, 'nccl')}",
+                            rank=0, world_size=1)
+    try:
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+        y = x.clone()
+        dist.all_reduce(y)
+        dist.barrier()
+        torch.cuda.synchronize()
+        nccl_ok = bool(torch.equal(x, y)) and dist.get_backend() == "nccl"
+    finally:
+        dist.destroy_process_group()
+    res = {"spawn_and_children_s": spawn_s, "losses_one_process": losses,
+           "losses_ranks": [r["losses"] for r in ranks], "loss_max_abs_err": loss_err,
+           "grad_max_rel_err": grad_rel, "hists_equal": hist_equal,
+           "hist_pixels_apart": hist_diff, "nccl_round_trip": nccl_ok,
+           "steps_s_rank": [r["step_s"] for r in ranks], "steps_s_one_process": step_s,
+           "eval_s_rank": [r["eval_s"] for r in ranks], "eval_s_one_process": eval_s}
+    print(f"[dp] 2 gloo ranks on one card ({spawn_s:.1f} s with start-up): 3 fp32 steps, "
+          f"losses {json.dumps(res['losses_ranks'])} vs one process at batch 4 "
+          f"{json.dumps(losses)}: max |dloss| {loss_err:.3e} (tol 1e-4); first-step "
+          f"gradients max error / leaf's largest {grad_rel:.3e} (tol 1e-5); steps "
+          f"{json.dumps(res['steps_s_rank'])} s a rank vs {step_s:.2f} s; Evaluator.run "
+          f"histograms summed over the ranks equal to one process: {hist_equal} (pixels "
+          f"apart {hist_diff}); eval {json.dumps(res['eval_s_rank'])} s a rank vs "
+          f"{eval_s:.2f} s; NCCL one-rank all-reduce on the card: {nccl_ok}; on {card}",
+          flush=True)
+    if loss_err > 1e-4 or grad_rel > 1e-5 or not hist_equal or not nccl_ok:
+        raise AssertionError(f"data parallel: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def profile_pipeline(pipe, ims, ids, reps: int = 3, tag: str = ""):
     """Warm host-clock times of the two calls (median of ``reps``), then
     one traced pair: device time by kernel and the device's idle share."""
@@ -2072,6 +2537,12 @@ def main() -> int:
         launches.update(phase_launches)
         phase_launches, results["cam"] = run_cam_surface(cfg_path, work, card)
         launches.update(phase_launches)
+        phase_launches, results["crf"] = run_crf(records, card)
+        launches.update(phase_launches)
+        phase_launches, results["crf_cli"] = run_crf_cli(
+            cfg_path, os.path.join(work, "step_00000006"), card)
+        launches.update(phase_launches)
+        results["data_parallel"] = run_data_parallel(work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for name in kernels.launches:

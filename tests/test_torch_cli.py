@@ -14,7 +14,8 @@ prompts.
   at step 2, ``--resume`` continuing in that run dir;
 - ``train_voc_seg`` and ``eval_seg``; ``generate_cams`` against JAX's
   within one fp16 step at 1.0 (2^-10); ``make_voc_labels`` equal to JAX's;
-- ``--crf`` and ``--mesh 2`` raise ``NotImplementedError``."""
+- ``--crf`` scored as JAX's; ``--mesh 2`` in one process raises the
+  ``ValueError`` that names torchrun."""
 
 import glob
 import json
@@ -257,15 +258,40 @@ def test_make_voc_labels_matches_jax(voc_tree, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--crf"], ["--mesh", "2"], ["--mesh", "8"]])
-def test_unported_eval_options_raise(voc_tree, flags):
-    """Dense CRF and multi-GPU evaluation are refused before any work."""
+def test_unported_eval_options_raise(voc_tree, jax_run, monkeypatch, tmp_path, flags):
+    """``--crf`` runs: the port's and JAX's eval_voc on JAX's checkpoint give
+    ``crf_seg`` histograms (the exact lattice on the host) as equal as the
+    other histograms, every labelled pixel counted.  ``--mesh N > 1`` in one
+    process raises the ValueError that names torchrun, before any work."""
+    from weclip_tpu.evalx import metrics as jmetrics
     from weclip_tpu_torch.cli import eval_voc, generate_cams
-    _, cfg = voc_tree
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eval_voc.main(["--config", cfg, "--device", "cpu"] + flags)
+    from weclip_tpu_torch.evalx.runner import Evaluator as TEvaluator
+    root, cfg = voc_tree
     if flags[0] == "--mesh":
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
+            eval_voc.main(["--config", cfg, "--device", "cpu"] + flags)
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
             generate_cams.main(["--config", cfg, "--device", "cpu"] + flags)
+        return
+    from weclip_tpu.cli import eval_voc as jeval
+    jhists, tres = [], []
+    orig_scores = jmetrics.scores
+    monkeypatch.setattr(jmetrics, "scores",
+                        lambda h: jhists.append(np.asarray(h)) or orig_scores(h))
+    _capture_runs(monkeypatch, TEvaluator, tres)
+    common = ["--config", cfg, "--model_path", jax_run, "--resize_long", "64",
+              "--mesh", "1", "--precision", "float32", "--max_images", "3"] + flags
+    with _Argv(["eval_voc"] + common + ["--work_dir", str(tmp_path / "jax")]):
+        jeval.main()
+    scores = eval_voc.main(common + ["--device", "cpu", "--work_dir", str(tmp_path)])
+    assert {"seg", "msc_seg", "cam", "crf_seg"} <= set(scores)
+    # JAX scores seg, msc_seg, cam, then crf_seg
+    got, want = tres[0]["hists"]["crf_seg"], jhists[3].astype(np.int64)
+    labels = [np.asarray(Image.open(root / "SegmentationClassAug" / f"{n}.png"))
+              for n in NAMES[:3]]
+    n_px = sum(int((lab < 21).sum()) for lab in labels)
+    assert got.dtype == np.int64 and int(got.sum()) == int(want.sum()) == n_px
+    assert int(np.abs(got - want).sum()) // 2 <= 0.001 * n_px
 
 
 def test_meters_and_scalar_writer_match_jax(tmp_path):

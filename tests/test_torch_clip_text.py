@@ -116,8 +116,7 @@ def base_config(ckpt: str, num_classes: int = 21):
 
 
 def assert_same_config(t, j):
-    """The port's config equals the JAX one on every field it has (the
-    port has no ``mesh`` section)."""
+    """The port's config equals the JAX one on every field it has."""
     td, jd = dataclasses.asdict(t), dataclasses.asdict(j)
     assert td == {k: jd[k] for k in td}
 

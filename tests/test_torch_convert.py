@@ -149,7 +149,7 @@ def test_launch_counters_reset():
     assert set(kernels.launches) == {"attention_fwd_export", "attention_fwd",
                                      "attention_bwd", "cross_attention",
                                      "attention_bwd_rect", "par_affinity",
-                                     "par_propagate"}
+                                     "par_propagate", "crf_window"}
     assert not any(kernels.launches.values())
 
 

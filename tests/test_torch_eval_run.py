@@ -63,7 +63,7 @@ def runs(tmp_path_factory):
     max_ori = max(max(s) for s in SIZES)
     examples = _examples(cfg.dataset.num_classes - 1)
     out = {"examples": examples, "tcfg": tcfg, "tparams": tparams, "tfrozen": tfrozen,
-           "pe": pe, "max_ori": max_ori}
+           "pe": pe, "max_ori": max_ori, "jcfg": cfg, "jparams": params, "jfrozen": frozen}
     for name, mod, prec, c, p, f, kw in (
             ("jax", jrunner, jprec.FP32, cfg, params, frozen, {}),
             ("torch", trunner, tprec.FP32, tcfg, tparams, tfrozen, {"device": "cpu"})):
@@ -127,10 +127,11 @@ def test_eval_run_saves_match_jax(runs):
                                        err_msg=key)
 
 
-def test_eval_run_options(runs):
+def test_eval_run_options(runs, monkeypatch):
     """``max_images`` and explicit process sharding (the local shard's
     histograms, which sum to the whole), ``with_cam=False`` (no cam
-    scores), and CRF refused."""
+    scores), and ``crf=True`` (the exact lattice): its ``crf_seg``
+    histogram equal to JAX's, every labelled pixel counted."""
     tcfg, tparams, tfrozen = runs["tcfg"], runs["tparams"], runs["tfrozen"]
     examples = runs["examples"]
     ev = trunner.Evaluator(tcfg, trunner.make_prep(tcfg, runs["max_ori"], 96), runs["pe"],
@@ -145,8 +146,17 @@ def test_eval_run_options(runs):
         np.testing.assert_array_equal(shards[0][key] + shards[1][key], full[key])
     with pytest.raises(ValueError):
         ev.run(tparams, tfrozen, examples, process_index=0)
-    with pytest.raises(NotImplementedError):
-        ev.run(tparams, tfrozen, examples, crf=True)
+    from weclip_tpu.evalx import metrics as jmetrics
+    jhists, orig = [], jmetrics.scores
+    monkeypatch.setattr(jmetrics, "scores", lambda h: jhists.append(np.asarray(h)) or orig(h))
+    jev = jrunner.Evaluator(runs["jcfg"], jrunner.make_prep(runs["jcfg"], runs["max_ori"], 96),
+                            runs["pe"], policy=jprec.FP32)
+    jres = jev.run(runs["jparams"], runs["jfrozen"], examples, crf=True)
+    tres = ev.run(tparams, tfrozen, examples, crf=True, return_hists=True)
+    got = tres["hists"]["crf_seg"]
+    assert got.dtype == np.int64 and int(got.sum()) == _counted(examples)
+    np.testing.assert_array_equal(got, jhists[3].astype(np.int64))  # seg, msc, cam, crf
+    assert tres["crf_seg"]["miou"] == jres["crf_seg"]["miou"]
     seg_only = trunner.Evaluator(tcfg, ev.prep, runs["pe"], policy=tprec.FP32,
                                  with_cam=False, device="cpu")
     res = seg_only.run(tparams, tfrozen, examples, max_images=2, return_hists=True)

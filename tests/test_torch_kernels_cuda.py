@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K6, K3-rect) against their plain versions on
+"""The port's CUDA kernels (K1-K7, K3-rect) against their plain versions on
 the card.  These need a CUDA card with nvcc and skip elsewhere; run them there
 with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 ``chip_smoke.py`` holds the same kernels at the full inference shapes."""
@@ -259,3 +259,23 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     # the refused request leaves no error behind for the next launch
     assert np.isfinite(ak.attention_core(*_qkv(card, 1, 2, 16, 64, torch.float32,
                                                (16,)))[0].cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("b, c, hs, ws, r", [(2, 21, 40, 36, 8), (1, 81, 33, 47, 5),
+                                             (3, 1, 12, 12, 13), (2, 40, 20, 20, 0)])
+def test_crf_window_kernel_matches_plain(card, b, c, hs, ws, r):
+    """K7 against its plain twin: the message and the normalizer within
+    1e-5 of each output's largest, the reference's wrap rule at the edges
+    (r larger than the grid included), and the normalizer-only call."""
+    from weclip_tpu_torch.refine import crf_kernels as ck
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.rand((b, c, hs, ws), generator=g, device=card)
+    img = torch.rand((b, 3, hs, ws), generator=g, device=card) * 4
+    before = kernels.launches["crf_window"]
+    acc, norm = ck.window_message(q, img, 2.5, r)
+    _, norm_only = ck.window_message(None, img, 2.5, r)
+    assert kernels.launches["crf_window"] == before + 2
+    ref_acc, ref_norm = ck.window_message_plain(q, img, 2.5, r)
+    for got, ref in ((acc, ref_acc), (norm, ref_norm), (norm_only, ref_norm)):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))

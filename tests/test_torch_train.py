@@ -81,11 +81,12 @@ def setup():
 
 def test_config_matches_jax():
     """(6) the port's config reads configs/voc_comer.yaml into the JAX
-    package's fields; only the TPU mesh section is not ported."""
+    package's fields, the ``mesh`` section included."""
     ref = dataclasses.asdict(jconfig.load_config("configs/voc_comer.yaml"))
     got = dataclasses.asdict(tconfig.load_config("configs/voc_comer.yaml"))
-    assert set(ref) - set(got) == {"mesh"} and set(got) <= set(ref)
-    assert got == {k: v for k, v in ref.items() if k != "mesh"}
+    assert got == ref
+    assert got["mesh"] == {"data_axis": "data", "model_axis": "model",
+                           "data_parallel": -1, "model_parallel": 1}
     assert got["comer"]["enabled"] and got["comer"]["interaction_indexes"] == (2, 5, 8, 10)
 
 

@@ -10,7 +10,8 @@ where there is none, random weights from ``seed`` and random unit text
 embeddings (a development setup, with a warning).  ``weights`` hands in the
 port's trees (e.g. from ``convert.py``), and ``model_path`` the trained
 parameters of a checkpoint (train/checkpoint.py: the port's own or the JAX
-package's Orbax ones).  CRF post-processing is not ported yet.
+package's Orbax ones).  ``segment(crf=True)`` refines with the exact dense
+CRF of refine/crf.py on the host.
 """
 
 from __future__ import annotations
@@ -130,10 +131,20 @@ class WeCLIPPipeline:
 
     def segment(self, image_rgb: np.ndarray, msc: bool = True,
                 crf: bool = False) -> np.ndarray:
-        """Predicted (H, W) int32 segmentation at the original resolution."""
-        if crf:
-            raise NotImplementedError("CRF post-processing is not ported yet")
-        return self.segment_batch([image_rgb], msc=msc)[0]
+        """Predicted (H, W) int32 segmentation at the original resolution;
+        ``crf`` refines the softmax of the msc logits with the exact dense
+        CRF (``DenseCRF`` of ``eval.crf``, on the host) before the argmax."""
+        if not crf:
+            return self.segment_batch([image_rgb], msc=msc)[0]
+        from weclip_tpu_torch.refine.crf import DenseCRF
+        ev, sizes, seg_avg1, seg_avg2, _ = self._run([image_rgb], with_cam=False, msc=msc)
+        oh, ow = image_rgb.shape[:2]
+        logits = ev.msc_logits(seg_avg1, seg_avg2, sizes)[0, :, :oh, :ow].cpu().numpy()
+        prob = np.exp(logits - logits.max(axis=0, keepdims=True))
+        prob /= prob.sum(axis=0, keepdims=True)
+        refined = DenseCRF.from_config(self.cfg.eval.crf)(image_rgb.astype(np.uint8),
+                                                         prob.astype(np.float32))
+        return refined.argmax(0).astype(np.int32)
 
     def pseudo_label_batch(self, images: Sequence[np.ndarray],
                            class_ids: Optional[Sequence] = None

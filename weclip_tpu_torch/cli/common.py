@@ -2,8 +2,8 @@
 the work-dir layout, config and flag parsing.
 
 The flags are the JAX package's, so command lines carry over, plus
-``--device`` (default ``cuda``).  ``--mesh`` takes -1, 0 or 1, one card;
-multi-GPU evaluation is not ported yet.
+``--device`` (default ``cuda``).  ``--mesh N`` runs on N ranks, one process
+per card started by ``torchrun --nproc_per_node N`` (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ from weclip_tpu_torch.core.config import Config, coco_config, load_config
 
 
 def setup_logger(filename: str | None = None):
-    """INFO to stdout, and to ``filename`` where given; replaces the
-    handlers an earlier call added."""
+    """INFO to stdout, and to ``filename`` where given (rank 0 of a
+    ``torchrun`` run only); replaces the handlers an earlier call added."""
     fmt = logging.Formatter("%(asctime)s - %(filename)s - %(levelname)s: %(message)s")
     root = logging.getLogger()
     root.setLevel(logging.INFO)
@@ -28,7 +28,7 @@ def setup_logger(filename: str | None = None):
         root.removeHandler(h)
         h.close()
     handlers = [logging.StreamHandler(sys.stdout)]
-    if filename:
+    if filename and int(os.environ.get("RANK", "0")) == 0:   # one log file a run
         handlers.append(logging.FileHandler(filename, mode="w"))
     for h in handlers:
         h.setFormatter(fmt)
@@ -73,12 +73,15 @@ def eval_parser(default_config: str | None = None) -> argparse.ArgumentParser:
                    help="checkpoint directory (its latest step) or one step_N "
                         "directory: the port's or the JAX package's Orbax ones")
     p.add_argument("--crf_impl", default="native", choices=["native", "jax"],
-                   help="dense-CRF backend (dense CRF is not ported yet)")
+                   help="dense-CRF backend: 'native' is the exact permutohedral "
+                        "lattice on the host; 'jax' (the JAX package's name, so "
+                        "command lines carry over) is the approximate mean field "
+                        "on the device (refine/crf.py::mean_field_crf)")
     p.add_argument("--crf_stride", default=4, type=int,
-                   help="bilateral subsampling stride of the approximate CRF "
-                        "(dense CRF is not ported yet)")
+                   help="bilateral subsampling stride of the on-device mean field")
     p.add_argument("--crf", action="store_true",
-                   help="dense-CRF post-processing (not ported yet: raises)")
+                   help="dense-CRF post-processing of the msc logits, scored as "
+                        "'crf segs score'")
     p.add_argument("--max_images", default=None, type=int)
     p.add_argument("--precision", default=None, choices=["bfloat16", "float32"])
     p.add_argument("--save_preds", action="store_true",
@@ -93,20 +96,18 @@ def eval_parser(default_config: str | None = None) -> argparse.ArgumentParser:
 
 def add_mesh_arg(p: argparse.ArgumentParser):
     p.add_argument("--mesh", default=-1, type=int,
-                   help="devices to evaluate on: -1, 0 or 1, one card "
-                        "(multi-GPU evaluation is not ported yet)")
+                   help="ranks to evaluate on (-1 or 0: every process of the run): "
+                        "N > 1 needs N processes, started by torchrun "
+                        "--nproc_per_node N; eval.batch_images is per rank")
 
 
-def build_eval_mesh(args) -> None:
-    """The single-card check of ``--mesh`` and ``--crf``: anything the port
-    cannot run yet raises NotImplementedError before any work starts."""
-    if getattr(args, "mesh", -1) not in (-1, 0, 1, None):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: multi-GPU evaluation is not ported yet "
-            f"(ROADMAP.md §1 item 6); use --mesh 1")
-    if getattr(args, "crf", False):
-        raise NotImplementedError(
-            "--crf: dense CRF is not ported yet (ROADMAP.md §1 item 5)")
+def build_eval_mesh(args, cfg: Config):
+    """The ranks of ``--mesh`` (parallel/mesh.py::make_mesh, which starts
+    the process group under ``torchrun`` and raises ``ValueError`` when the
+    run has another number of processes) and this rank's device."""
+    from weclip_tpu_torch.parallel import mesh as meshlib
+    mesh = meshlib.make_mesh(getattr(args, "mesh", -1), cfg.mesh.model_parallel)
+    return mesh, meshlib.local_device(args.device)
 
 
 def with_precision(cfg: Config, name: str | None) -> Config:

@@ -2,7 +2,9 @@
 
 Usage:
     python -m weclip_tpu_torch.cli.eval_voc --config configs/voc.yaml \
-        --model_path <checkpoint dir> [--save_preds] [--save_logits]
+        --model_path <checkpoint dir> [--save_preds] [--save_logits] \
+        [--crf [--crf_impl native|jax] [--crf_stride 4]]
+    torchrun --nproc_per_node N -m weclip_tpu_torch.cli.eval_voc ... --mesh N
 
 The frozen CLIP and class text features come from ``clip.pretrained_path``
 (train/trainer.py::build_frozen); ``--model_path`` takes the port's
@@ -20,19 +22,18 @@ from weclip_tpu_torch.cli import common
 log = logging.getLogger("weclip_tpu_torch")
 
 
-def load_eval_model(cfg, args):
-    """(frozen, params, cfg) on ``args.device``: ``build_frozen``, then the
+def load_eval_model(cfg, args, device: str):
+    """(frozen, params, cfg) on ``device``: ``build_frozen``, then the
     trained parameters of ``--model_path`` (randomly initialized heads
     without one)."""
     from weclip_tpu_torch.models import weclip
     from weclip_tpu_torch.train import checkpoint
     from weclip_tpu_torch.train.trainer import build_frozen
 
-    frozen, _, cfg = build_frozen(cfg, device=args.device)
-    params = weclip.init_trainable_params(torch.Generator().manual_seed(0), cfg,
-                                          args.device)
+    frozen, _, cfg = build_frozen(cfg, device=device)
+    params = weclip.init_trainable_params(torch.Generator().manual_seed(0), cfg, device)
     if args.model_path:
-        params, _, step = checkpoint.restore(args.model_path, device=args.device)
+        params, _, step = checkpoint.restore(args.model_path, device=device)
         log.info("restored step %d from %s", step, args.model_path)
     else:
         log.warning("no --model_path: evaluating randomly initialized heads")
@@ -46,9 +47,9 @@ def run_eval(cfg, args, dataset_name: str, with_cam: bool = None):
     from weclip_tpu_torch.core import precision
     from weclip_tpu_torch.evalx.runner import Evaluator, make_prep
 
-    common.build_eval_mesh(args)
+    _, device = common.build_eval_mesh(args, cfg)
     policy = precision.make_policy(cfg.precision.compute_dtype)
-    frozen, params, cfg = load_eval_model(cfg, args)
+    frozen, params, cfg = load_eval_model(cfg, args, device)
     if dataset_name == "coco":
         from weclip_tpu_torch.data.coco import CocoSegDataset
         ds = CocoSegDataset(cfg.dataset, split=args.eval_set)
@@ -63,14 +64,17 @@ def run_eval(cfg, args, dataset_name: str, with_cam: bool = None):
     prep = make_prep(cfg, max_ori=max_ori, resize_long=args.resize_long)
     pe = frozen["visual"]["positional_embedding"].float().cpu().numpy()
     ev = Evaluator(cfg, prep, pe, policy=policy, with_cam=with_cam, msc=True,
-                   device=args.device)
+                   device=device)
     scores = ev.run(params, frozen, ds, max_images=args.max_images, progress=True,
+                    crf=args.crf, crf_impl=args.crf_impl, crf_stride=args.crf_stride,
                     save_dir=args.work_dir if args.save_preds else None,
                     logits_dir=args.work_dir if args.save_logits else None)
     if "cam" in scores:
         log.info("cams score:\n%s", scores["cam"])
     log.info("segs score:\n%s", scores["seg"])
     log.info("msc segs score:\n%s", scores["msc_seg"])
+    if "crf_seg" in scores:
+        log.info("crf segs score:\n%s", scores["crf_seg"])
     return scores
 
 

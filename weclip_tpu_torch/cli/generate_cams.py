@@ -6,6 +6,9 @@ cam/highres.py at the original size.
 Usage:
     python -m weclip_tpu_torch.cli.generate_cams --config configs/voc.yaml \
         --split train_aug --out cams/
+
+Under ``torchrun --nproc_per_node N ... --mesh N`` each rank writes the
+strided shard ``range(n)[rank::N]`` of the images.
 """
 
 from __future__ import annotations
@@ -35,7 +38,6 @@ def main(argv=None):
     common.add_device_arg(p)
     args = p.parse_args(argv)
     common.setup_logger()
-    common.build_eval_mesh(args)
 
     from weclip_tpu_torch.cam.highres import make_cam_program
     from weclip_tpu_torch.core import precision
@@ -44,7 +46,8 @@ def main(argv=None):
     from weclip_tpu_torch.train.trainer import build_frozen
 
     cfg = load_config(args.config) if args.config else Config()
-    frozen, _, cfg = build_frozen(cfg, device=args.device)
+    mesh, device = common.build_eval_mesh(args, cfg)
+    frozen, _, cfg = build_frozen(cfg, device=device)
     policy = precision.make_policy(cfg.precision.compute_dtype)
     if cfg.dataset.name == "coco":
         from weclip_tpu_torch.data.coco import CocoSegDataset as DS
@@ -55,14 +58,15 @@ def main(argv=None):
                      resize_long=args.resize_long)
     pe = frozen["visual"]["positional_embedding"].float().cpu().numpy()
     ev = Evaluator(cfg, prep, pe, policy=policy, with_cam=True, msc=False,
-                   device=args.device)
+                   device=device)
     cams_for_batch = make_cam_program(cfg, prep, policy, method=args.cam_method)
 
     os.makedirs(args.out, exist_ok=True)
     bsz = cfg.eval.batch_images
     n = len(ds) if args.max_images is None else min(len(ds), args.max_images)
-    for s in range(0, n, bsz):
-        examples = [ds[i] for i in range(s, min(s + bsz, n))]
+    mine = list(range(n))[mesh.rank::mesh.data]
+    for s in range(0, len(mine), bsz):
+        examples = [ds[i] for i in mine[s:s + bsz]]
         n_real = len(examples)
         while len(examples) < bsz:
             examples.append(examples[-1])
@@ -75,7 +79,7 @@ def main(argv=None):
             np.save(os.path.join(args.out, ex["name"] + ".npy"),
                     {"keys": keys,
                      "attn_highres": highres[j, keys, :oh, :ow].astype(np.float16)})
-        log.info("%d / %d", min(s + bsz, n), n)
+        log.info("%d / %d", min(s + bsz, len(mine)), len(mine))
 
 
 if __name__ == "__main__":

@@ -5,6 +5,11 @@ with train/seg_step.py, checkpoints every ``train.eval_iters`` steps past
 
 Usage:
     python -m weclip_tpu_torch.cli.train_voc_seg --config configs/voc.yaml
+    torchrun --nproc_per_node N -m weclip_tpu_torch.cli.train_voc_seg ...
+
+Under ``torchrun`` each of the ``mesh.data_parallel`` ranks reads its own
+shard at ``samples_per_gpu`` images (parallel/mesh.py); rank 0 writes the
+checkpoints and the log.
 """
 
 from __future__ import annotations
@@ -49,11 +54,13 @@ def main(argv=None):
 
     from weclip_tpu_torch.core import precision
     from weclip_tpu_torch.data.loader import PrefetchLoader
+    from weclip_tpu_torch.parallel import mesh as meshlib
     from weclip_tpu_torch.train import checkpoint
     from weclip_tpu_torch.train.seg_step import create_seg_train_state, make_seg_train_step
-    from weclip_tpu_torch.train.trainer import build_frozen, make_batcher
+    from weclip_tpu_torch.train.trainer import build_frozen, make_batcher, save_checkpoint
 
-    device = args.device
+    mesh = meshlib.make_mesh(cfg.mesh.data_parallel, cfg.mesh.model_parallel)
+    device = meshlib.local_device(args.device)
     policy = precision.make_policy(cfg.precision.compute_dtype)
     frozen, _, cfg = build_frozen(cfg, device=device)
     ckpt_dir = os.path.join(cfg.work_dir.dir, cfg.work_dir.ckpt_dir)
@@ -67,27 +74,27 @@ def main(argv=None):
         state.optimizer.load_state_dict(saved["optimizer"])
         state.scheduler.load_state_dict(saved["scheduler"])
     state.step = start
-    step_fn = make_seg_train_step(cfg, policy)
+    step_fn = make_seg_train_step(cfg, policy, mesh)
     to_device = make_batcher(cfg, frozen, device)
     loader = PrefetchLoader(VOCSegTrainDataset(cfg.dataset, cfg.train.split),
-                            cfg.train.samples_per_gpu, seed=cfg.train.seed, start=start)
+                            cfg.train.samples_per_gpu, seed=cfg.train.seed, start=start,
+                            process_index=mesh.rank, process_count=mesh.data)
+    lead = mesh.rank == 0
     try:
         for n_iter in range(start, cfg.train.max_iters):
             hb = next(loader)
             batch, _, _ = to_device(hb)
             label = torch.from_numpy(hb["label"]).to(device)
             state, m = step_fn(state, frozen, batch, label, rng=cfg.train.seed + 1)
-            if (n_iter + 1) % cfg.train.log_iters == 0:
+            if lead and (n_iter + 1) % cfg.train.log_iters == 0:
                 log.info("iter %d: loss %.4f acc %.4f", n_iter + 1, float(m.loss),
                          float(m.acc))
             if ((n_iter + 1) % cfg.train.eval_iters == 0
                     and n_iter + 1 > cfg.train.ckpt_start_iter):
-                checkpoint.save(ckpt_dir, n_iter + 1, state.params, state.optimizer,
-                                state.scheduler)
+                save_checkpoint(ckpt_dir, n_iter + 1, state, lead)
     finally:
         loader.close()
-    checkpoint.save(ckpt_dir, cfg.train.max_iters, state.params, state.optimizer,
-                    state.scheduler)
+    save_checkpoint(ckpt_dir, cfg.train.max_iters, state, lead)
     return state
 
 

@@ -4,8 +4,9 @@ paths read.
 An own copy of ``weclip_tpu/core/config.py`` (the port imports nothing of
 the JAX package).  Field names and defaults are identical, so a bare
 ``Config()`` is the reference VOC setup and ``load_config`` overlays the same
-YAML files.  The TPU mesh section is not ported (``torch.distributed`` is
-later work); ``_apply`` ignores keys of sections this copy does not have.
+YAML files.  The ``mesh`` section keeps the JAX package's fields: here
+``data_parallel`` counts ``torch.distributed`` ranks (parallel/mesh.py);
+``_apply`` ignores keys of sections this copy does not have.
 """
 
 from __future__ import annotations
@@ -118,6 +119,15 @@ class EvalConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    # the JAX package's device mesh; here ``data_parallel`` counts ranks
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1                # -1 = the whole world
+    model_parallel: int = 1                # > 1 is not ported
+
+
+@dataclass(frozen=True)
 class PrecisionConfig:
     """bf16 matmul inputs with fp32 accumulation; LayerNorm/softmax fp32;
     the trainable heads run in fp32 (``head_dtype``)."""
@@ -155,6 +165,7 @@ class Config:
     cam: CamConfig = field(default_factory=CamConfig)
     par: ParConfig = field(default_factory=ParConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
     comer: ComerConfig = field(default_factory=ComerConfig)
     work_dir: WorkDirConfig = field(default_factory=WorkDirConfig)

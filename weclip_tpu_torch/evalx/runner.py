@@ -10,8 +10,10 @@ device per grid size).  Normalization and resizing happen on the device
 (evalx/engine.py).  Host tensors are pinned and copied without blocking.
 ``run`` prepares the next batch on one host thread while the device works
 on the current one, and pads a ragged last batch with all-ignore labels, so
-the histograms are unaffected.  The multi-process histogram all-reduce and
-CRF post-processing are not ported yet.
+the histograms are unaffected.  Dense-CRF post-processing runs either the
+exact lattice on the host or the on-device mean field (refine/crf.py).  In
+a ``torch.distributed`` run each rank evaluates a strided shard and the
+histograms are summed over the ranks (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import dataclasses
 import concurrent.futures as cf
 import logging
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +35,7 @@ from weclip_tpu_torch.evalx.engine import (EvalSizes, ScaleBatch, make_eval_comb
                                            make_eval_scale1, make_eval_scale2,
                                            make_msc_logits)
 from weclip_tpu_torch.models.clip.vit import grid_valid_mask, pos_emb_host
+from weclip_tpu_torch.parallel import mesh as meshlib
 
 
 def _round_up(x: int, m: int) -> int:
@@ -179,14 +182,26 @@ class Evaluator:
                 self._to_device(cls_active))
 
     def run(self, params, frozen, dataset, max_images: Optional[int] = None,
-            progress: bool = False, crf: bool = False,
-            save_dir: Optional[str] = None, logits_dir: Optional[str] = None,
-            return_hists: bool = False, process_index: Optional[int] = None,
+            progress: bool = False, crf: bool = False, crf_impl: str = "native",
+            crf_stride: int = 4, save_dir: Optional[str] = None,
+            logits_dir: Optional[str] = None, return_hists: bool = False,
+            process_index: Optional[int] = None,
             process_count: Optional[int] = None) -> Dict[str, Dict]:
         """Scores of the dataset's first ``max_images`` examples (each a
         dict as ``build_batch`` reads it, plus ``name`` where predictions or
-        logits are saved): ``{"seg", "msc_seg"}`` and, with the CAM chain,
-        ``"cam"``, each ``metrics.scores`` of its histogram.
+        logits are saved): ``{"seg", "msc_seg"}``, with the CAM chain
+        ``"cam"``, and with ``crf`` ``"crf_seg"``, each ``metrics.scores`` of
+        its histogram.
+
+        ``crf``: the msc logits' softmax refined by a dense CRF, then argmax.
+        ``crf_impl`` ``"native"`` runs the exact permutohedral lattice on the
+        host per image (float64 softmax of the cropped logits);
+        ``"jax"`` (the JAX package's name) runs ``refine/crf.py::
+        mean_field_crf`` on the device over the edge-padded output canvas,
+        its bilateral kernel on the stride-``crf_stride`` grid of n_sub
+        points: up to 4096 points the dense kernel, batched; up to 16384 the
+        dense kernel one image at a time (one 1 GiB matrix live); above, the
+        window sum of K7, batched.
 
         ``save_dir``: the msc prediction of each image as a PNG of class ids
         under ``prediction/`` and in the VOC palette under
@@ -199,20 +214,17 @@ class Evaluator:
         ``process_index``/``process_count``, given together, evaluate the
         strided shard ``range(n)[process_index::process_count]`` and return
         that shard's scores and histograms (the caller sums them).  Without
-        them the whole dataset is evaluated; in a multi-process
-        ``torch.distributed`` run that would need the histograms reduced
-        across processes, which is not ported yet."""
-        if crf:
-            raise NotImplementedError("CRF post-processing is not ported yet")
+        them, in a ``torch.distributed`` world of more than one rank, each
+        rank evaluates ``range(n)[rank::world]`` and the histograms are
+        summed by one all-reduce, so every rank returns the global scores;
+        every rank must make this call."""
+        if crf and crf_impl not in ("native", "jax"):
+            raise ValueError(f"crf_impl {crf_impl!r}: expected 'native' or 'jax'")
         if (process_index is None) != (process_count is None):
             raise ValueError("pass both process_index and process_count or neither")
-        if process_index is None:
-            dist = torch.distributed
-            if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-                raise NotImplementedError(
-                    "the multi-process histogram all-reduce is not ported yet; "
-                    "pass process_index and process_count and sum the histograms")
-            pi, pc = 0, 1
+        auto_reduce = process_index is None
+        if auto_reduce:
+            pi, pc = meshlib.rank_world()
         else:
             pi, pc = process_index, process_count
         if not 0 <= pi < pc:
@@ -220,6 +232,7 @@ class Evaluator:
         k = self.cfg.dataset.num_classes
         patch = self.cfg.clip.patch_size
         hists = tuple(metrics.zero_hist(k, self.device) for _ in range(3))
+        h_crf = np.zeros((k, k), np.int64)
         bsz = self.cfg.eval.batch_images
         n = len(dataset) if max_images is None else min(len(dataset), max_images)
         my_idx = list(range(n))[pi::pc]
@@ -258,19 +271,93 @@ class Evaluator:
                                                   cam_labels, labels, sizes, hists)
                 if save_dir is not None:
                     _save_predictions(save_dir, examples[:n_real], pred_msc)
+                if logits_dir is not None or crf:
+                    msc_logits = self.msc_logits(seg_avg1, seg_avg2, sizes)
                 if logits_dir is not None:
-                    _save_logits(logits_dir, examples[:n_real], seg_single,
-                                 self.msc_logits(seg_avg1, seg_avg2, sizes), sizes, patch)
-        h_single, h_msc, h_cam = (h.cpu().numpy() for h in hists)
+                    _save_logits(logits_dir, examples[:n_real], seg_single, msc_logits,
+                                 sizes, patch)
+                if crf:
+                    crf_fn = self._crf_jax if crf_impl == "jax" else self._crf_native
+                    preds = crf_fn(msc_logits[:n_real], examples[:n_real], crf_stride)
+                    for ex, pred in zip(examples, preds):
+                        h_crf += _bincount_hist(ex["label"], pred, k)
+        h_single, h_msc, h_cam = (h.cpu() for h in hists)
+        if auto_reduce and pc > 1:
+            # the global histograms on every rank, in one collective
+            summed = meshlib.psum(torch.stack([h_single, h_msc, h_cam,
+                                               torch.from_numpy(h_crf)]))
+            h_single, h_msc, h_cam, h_crf = summed.unbind(0)
+        h_single, h_msc, h_cam, h_crf = (np.asarray(h) for h in
+                                         (h_single, h_msc, h_cam, h_crf))
         out = {"seg": metrics.scores(h_single), "msc_seg": metrics.scores(h_msc)}
         if self.with_cam:
             # without the CAM chain the cam histogram counts all-zero labels
             out["cam"] = metrics.scores(h_cam)
+        if crf:
+            out["crf_seg"] = metrics.scores(h_crf)
         if return_hists:
             out["hists"] = {"seg": h_single, "msc_seg": h_msc}
             if self.with_cam:
                 out["hists"]["cam"] = h_cam
+            if crf:
+                out["hists"]["crf_seg"] = h_crf
         return out
+
+    def _crf_jax(self, logits: torch.Tensor, examples, stride: int) -> List[np.ndarray]:
+        """Per image the (H, W) argmax of ``mean_field_crf`` over the
+        softmax of its canvas logits (B, K, Co, Co), the image edge-padded
+        onto the canvas."""
+        from weclip_tpu_torch.refine.crf import mean_field_crf
+        co = self.prep.canvas_out
+        imgs = np.stack([np.pad(_img_raw(ex), [(0, co - ex["img_raw"].shape[0]),
+                                               (0, co - ex["img_raw"].shape[1]), (0, 0)],
+                                mode="edge").transpose(2, 0, 1) for ex in examples])
+        imgs = self._to_device(imgs.astype(np.float32))
+        probs = torch.softmax(logits, dim=1)
+        crf_cfg = self.cfg.eval.crf
+        n_sub = (co // stride) ** 2
+        if 4096 < n_sub <= 16384:
+            # the dense kernel one image at a time: one (N, N) matrix live
+            ref = torch.stack([mean_field_crf(p, im, crf_cfg, bi_stride=stride,
+                                              dense_max_points=16384)
+                               for p, im in zip(probs, imgs)])
+        else:        # small grids: the dense kernel; large: the window sum
+            ref = mean_field_crf(probs, imgs, crf_cfg, bi_stride=stride)
+        pred = ref.argmax(dim=1).cpu().numpy()
+        return [pred[j, :ex["label"].shape[0], :ex["label"].shape[1]]
+                for j, ex in enumerate(examples)]
+
+    def _crf_native(self, logits: torch.Tensor, examples, stride: int) -> List[np.ndarray]:
+        """Per image the (H, W) argmax of ``DenseCRF`` (the exact lattice,
+        on the host) over the float64 softmax of its cropped logits;
+        ``stride`` is not read."""
+        from weclip_tpu_torch.refine.crf import DenseCRF
+        post = DenseCRF.from_config(self.cfg.eval.crf)
+        logits = logits.cpu().numpy()
+        preds = []
+        for lg, ex in zip(logits, examples):
+            oh, ow = ex["label"].shape
+            lg = lg[:, :oh, :ow].astype(np.float64)
+            lg -= lg.max(axis=0, keepdims=True)
+            prob = np.exp(lg)
+            prob /= prob.sum(axis=0, keepdims=True)
+            preds.append(post(_img_raw(ex), prob.astype(np.float32)).argmax(0))
+        return preds
+
+
+def _img_raw(ex) -> np.ndarray:
+    raw = ex.get("img_raw")
+    if raw is None:
+        raise ValueError("CRF needs 'img_raw' (HWC uint8) in dataset examples")
+    return raw
+
+
+def _bincount_hist(label: np.ndarray, pred: np.ndarray, k: int) -> np.ndarray:
+    """(k, k) int64 counts of (label, pred) over the pixels with
+    0 <= label < k."""
+    m = (label >= 0) & (label < k)
+    return np.bincount(k * label[m].astype(np.int64) + pred[m],
+                       minlength=k * k).reshape(k, k)
 
 
 def _progress(it):

@@ -10,8 +10,8 @@ returns ``cudaGetLastError()`` after its launches, and ``call`` raises on
 anything but 0.
 
 ``launches`` counts kernel launches by kernel name.  Only the wrappers in
-``ops/attention_kernels.py`` and ``refine/par_kernels.py`` add to it, at the
-point where they launch.
+``ops/attention_kernels.py``, ``refine/par_kernels.py`` and
+``refine/crf_kernels.py`` add to it, at the point where they launch.
 """
 
 from __future__ import annotations
@@ -71,6 +71,11 @@ SIGNATURES = {
         # src, dst, tmp, aff, B, C, H, W, dilations, n_dil, num_iter, stream
         "par_propagate": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
     },
+    "crf": {
+        # fp32 q (or None when C == 0), img, acc, norm, B, C, hs, ws, r,
+        # sigma^2, stream
+        "crf_window": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    },
 }
 
 # kernel name -> launches; see module docstring
@@ -82,6 +87,7 @@ launches: Dict[str, int] = {
     "attention_bwd_rect": 0,     # K3-rect
     "par_affinity": 0,           # K4
     "par_propagate": 0,          # K5
+    "crf_window": 0,             # K7
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -101,11 +101,15 @@ def init_head_params(gen: torch.Generator, n_layers: int = 11, in_dim: int = 768
 def fuse_forward(p: Params, layer_tokens: torch.Tensor,
                  gen: Optional[torch.Generator] = None,
                  dropout_rate: float = 0.1,
-                 policy: precision.Policy = precision.DEFAULT) -> torch.Tensor:
+                 policy: precision.Policy = precision.DEFAULT,
+                 batch_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Stacked per-layer MLPs + channel concat (layer order) + 1x1 fuse,
     then, with a generator, Dropout2d (whole channels per image).
-    layer_tokens: (N_layers, B, P, D) patch tokens.  Returns (B, P, embed)
-    fp32."""
+    layer_tokens: (N_layers, B, P, D) patch tokens.  ``batch_rows`` =
+    (first row, global batch) where this batch is a slice of a larger one
+    (a data-parallel rank): the masks are drawn for the global batch and
+    this slice's rows taken, so every row gets the mask one process would
+    give it.  Returns (B, P, embed) fp32."""
     cd = policy.compute_dtype
     nl, b, pp, d = layer_tokens.shape
     x = layer_tokens.reshape(nl, b * pp, d)
@@ -116,8 +120,9 @@ def fuse_forward(p: Params, layer_tokens: torch.Tensor,
     h = h.reshape(nl, b, pp, e).permute(1, 2, 0, 3).reshape(b, pp, nl * e)
     out = precision.matmul_f32(h, p["fuse_w"].t(), cd) + p["fuse_b"]
     if gen is not None and dropout_rate > 0.0:
-        keep = torch.rand((b, 1, out.shape[-1]), generator=gen,
-                          device=out.device) < 1.0 - dropout_rate
+        first, total = (0, b) if batch_rows is None else batch_rows
+        keep = torch.rand((total, 1, out.shape[-1]), generator=gen,
+                          device=out.device)[first:first + b] < 1.0 - dropout_rate
         out = out * keep / (1.0 - dropout_rate)
     return out
 

@@ -56,13 +56,15 @@ def backbone_and_heads(params: Dict[str, Any], frozen: Dict[str, Any],
                        batch: Batch, cfg: Config, policy: precision.Policy,
                        with_attn: bool = True, attn_rows: Optional[int] = None,
                        gen: Optional[torch.Generator] = None,
-                       decoder_kernel: bool = False):
+                       decoder_kernel: bool = False,
+                       batch_rows: Optional[Tuple[int, int]] = None):
     """Frozen CLIP forward + fuse/decoder/affinity heads, plus the CoMer
     branch when ``params`` has it and the config enables it.
 
     The frozen ViT forward runs without gradient; the fuse head, CoMer and
     the decoder carry it wherever the caller has it enabled.  ``gen`` draws
-    the fuse head's channel dropout (None: off).  ``decoder_kernel`` sends
+    the fuse head's channel dropout (None: off), for ``batch_rows`` of a
+    larger batch where given (heads.fuse_forward).  ``decoder_kernel`` sends
     the decoder attention to K2 on CUDA: only gradient-free callers (the
     evaluation engine) may set it.  The heads run at their own (fp32)
     policy, the CoMer branch at the backbone policy.
@@ -73,7 +75,8 @@ def backbone_and_heads(params: Dict[str, Any], frozen: Dict[str, Any],
     layer_tokens = feats.layer_tokens[:, :, 1:batch.valid.shape[1], :]
     valid_p = batch.valid[:, 1:].float()
     hp = head_policy(cfg)
-    fused = heads.fuse_forward(params["head"]["fuse"], layer_tokens, gen, policy=hp)
+    fused = heads.fuse_forward(params["head"]["fuse"], layer_tokens, gen, policy=hp,
+                               batch_rows=batch_rows)
     if "comer" in params and cfg.comer.enabled:
         fused = fused + comer_forward(params["comer"], batch.img, layer_tokens,
                                       batch.valid[:, 1:], cfg.comer, policy)
@@ -185,13 +188,16 @@ def forward_train(params: Dict[str, Any], frozen: Dict[str, Any], batch: Batch,
                   policy: precision.Policy = precision.DEFAULT,
                   cls_idx: Optional[torch.Tensor] = None,
                   cls_active: Optional[torch.Tensor] = None,
-                  with_pseudo: bool = True) -> ForwardOutputs:
+                  with_pseudo: bool = True,
+                  batch_rows: Optional[Tuple[int, int]] = None) -> ForwardOutputs:
     """Training forward on fixed square crops (valid all true): heads with
     gradient, pseudo labels without.  ``with_pseudo=False`` (the fully
     supervised variant) skips the attention export and the pseudo-label
-    chain: the labels and refined CAMs are zeros."""
+    chain: the labels and refined CAMs are zeros.  ``batch_rows``: see
+    ``backbone_and_heads``."""
     feats, head_out, attn_pred, _ = backbone_and_heads(
-        params, frozen, batch, cfg, policy, with_attn=with_pseudo, gen=gen)
+        params, frozen, batch, cfg, policy, with_attn=with_pseudo, gen=gen,
+        batch_rows=batch_rows)
     h, w = batch.img.shape[-2:]
     if with_pseudo:
         cam_labels, refined = pseudo_labels(frozen, feats, attn_pred, batch, cfg,

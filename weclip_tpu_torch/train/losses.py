@@ -8,12 +8,18 @@ weclip_tpu/train/losses.py).
   affinity against a {0, 1, 255} affinity label;
 - ``cams_to_affinity_label``: pseudo labels sampled every ``patch`` pixels,
   pairwise equality, the radius neighbourhood and the ignore rows/columns.
+
+The losses normalize by counts over the whole batch.  Under data
+parallelism each rank holds a slice of it: ``reduce`` (parallel/mesh.py::
+psum) sums those counts over the ranks, so each rank's loss is its share of
+the global-batch loss and the shares sum to it, as the JAX package's GSPMD
+computes it.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,32 +47,41 @@ def cams_to_affinity_label(cam_label: torch.Tensor, mask: torch.Tensor,
     return eq.masked_fill(is_ign[:, :, None], ignore_index)   # ignore rows
 
 
-def aff_loss(attn_pred: torch.Tensor, aff_label: torch.Tensor
+Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _total(x: torch.Tensor, reduce: Reduce) -> torch.Tensor:
+    return x if reduce is None else reduce(x)
+
+
+def aff_loss(attn_pred: torch.Tensor, aff_label: torch.Tensor, reduce: Reduce = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Balanced affinity loss; returns (loss, pos_count, neg_count)."""
+    """Balanced affinity loss; returns (loss, pos_count, neg_count), the
+    counts summed by ``reduce`` where given."""
     pos = (aff_label == 1).float()
     neg = (aff_label == 0).float()
-    pos_count = pos.sum() + 1.0
-    neg_count = neg.sum() + 1.0
+    pos_count = _total(pos.sum(), reduce) + 1.0
+    neg_count = _total(neg.sum(), reduce) + 1.0
     pos_loss = torch.sum(pos * (1.0 - attn_pred)) / pos_count
     neg_loss = torch.sum(neg * attn_pred) / neg_count
     return 0.5 * pos_loss + 0.5 * neg_loss, pos_count, neg_count
 
 
 def _masked_ce(logits: torch.Tensor, label: torch.Tensor,
-               valid: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy over the pixels where ``valid`` (0 when none is)."""
+               valid: torch.Tensor, reduce: Reduce = None) -> torch.Tensor:
+    """Mean cross-entropy over the pixels where ``valid`` (0 when none is),
+    the count of those pixels summed by ``reduce`` where given."""
     logp = torch.log_softmax(logits.float(), dim=1)               # (B, K, H, W)
     lab = label.long().clamp(0, logits.shape[1] - 1)
     nll = -torch.gather(logp, 1, lab[:, None])[:, 0]
     v = valid.float()
-    return torch.sum(nll * v) / v.sum().clamp_min(1.0)
+    return torch.sum(nll * v) / _total(v.sum(), reduce).clamp_min(1.0)
 
 
 def seg_loss(logits: torch.Tensor, label: torch.Tensor,
-             ignore_index: int = 255) -> torch.Tensor:
+             ignore_index: int = 255, reduce: Reduce = None) -> torch.Tensor:
     """fg/bg-split cross-entropy.  logits (B, K, H, W); label (B, H, W)."""
     not_ign = label != ignore_index
-    bg = _masked_ce(logits, label, not_ign & (label == 0))
-    fg = _masked_ce(logits, label, not_ign & (label != 0))
+    bg = _masked_ce(logits, label, not_ign & (label == 0), reduce)
+    fg = _masked_ce(logits, label, not_ign & (label != 0), reduce)
     return 0.5 * (bg + fg)

@@ -7,6 +7,14 @@ optimizer.  Only the trainable tree (the heads, and CoMer where enabled)
 carries gradients: the frozen ViT forward runs without them, and GradCAM's
 own backward (inside the pseudo-label chain) takes gradients of block 11's
 input alone, so its graph never joins the loss's.
+
+Data parallel (``mesh`` of more than one rank, parallel/mesh.py): each rank
+runs its slice of the global batch.  The losses' counts are summed over the
+ranks first (train/losses.py), so each rank's loss is its share of the
+global-batch loss; the gradients are then summed, and every rank takes the
+update one process would take over the whole batch, as the JAX package's
+GSPMD step does.  The dropout masks are drawn for the global batch, each
+rank taking its rows; the metrics are global.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from weclip_tpu_torch.core.config import Config
 from weclip_tpu_torch.models import weclip
 from weclip_tpu_torch.models.clip import vit
 from weclip_tpu_torch.ops.resize import resize_bilinear
+from weclip_tpu_torch.parallel import mesh as meshlib
 from weclip_tpu_torch.train import losses
 from weclip_tpu_torch.train.optimizer import make_optimizer
 
@@ -72,30 +81,44 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def train_losses(cfg: Config, out: weclip.ForwardOutputs, pseudo: torch.Tensor,
-                 rmask: torch.Tensor) -> Tuple[torch.Tensor, StepMetrics]:
+                 rmask: torch.Tensor, reduce: losses.Reduce = None
+                 ) -> Tuple[torch.Tensor, StepMetrics]:
     """The step's loss on the forward's outputs against pseudo labels
     ``pseudo`` (B, H, W): the segmentation loss on the crop-size upsampled
     logits plus ``attn_loss_weight`` times the affinity loss, whose labels
-    use the (hw, hw) neighbourhood ``rmask``."""
+    use the (hw, hw) neighbourhood ``rmask``.  With ``reduce`` (a sum over
+    data-parallel ranks) the loss is this rank's share of the global-batch
+    loss and the metrics are global."""
     crop = cfg.dataset.crop_size
     g = crop // cfg.clip.patch_size
     b = out.seg.shape[0]
     seg_hw = resize_bilinear(out.seg.reshape(b, g, g, -1).permute(0, 3, 1, 2),
                              crop, crop)                          # (B, K, H, W)
-    sloss = losses.seg_loss(seg_hw, pseudo, cfg.dataset.ignore_index)
+    sloss = losses.seg_loss(seg_hw, pseudo, cfg.dataset.ignore_index, reduce)
     aff_label = losses.cams_to_affinity_label(
         pseudo, rmask, cfg.dataset.ignore_index, cfg.clip.patch_size)
-    aloss, _, _ = losses.aff_loss(out.attn_pred, aff_label)
+    aloss, _, _ = losses.aff_loss(out.attn_pred, aff_label, reduce)
     total = sloss + cfg.train.attn_loss_weight * aloss
-    pacc = (seg_hw.argmax(dim=1) == pseudo).float().mean()
-    return total, StepMetrics(total.detach(), sloss.detach(), aloss.detach(), pacc)
+    hit = (seg_hw.argmax(dim=1) == pseudo).float()
+    if reduce is None:
+        return total, StepMetrics(total.detach(), sloss.detach(), aloss.detach(),
+                                  hit.mean())
+    # one collective: the three loss shares, the hits and the pixel count
+    t, sl, al, hits, n = reduce(torch.stack([
+        total.detach(), sloss.detach(), aloss.detach(), hit.sum(),
+        torch.tensor(float(hit.numel()), device=hit.device)])).unbind(0)
+    return total, StepMetrics(t, sl, al, hits / n)
 
 
-def make_loss_fn(cfg: Config, policy: precision.Policy = precision.DEFAULT):
+def make_loss_fn(cfg: Config, policy: precision.Policy = precision.DEFAULT,
+                 mesh: Optional[meshlib.Mesh] = None):
     """Returns ``loss_fn(params, frozen, batch, require_seg_trans, gen,
     cls_idx, cls_active, pseudo=None) -> (total loss, StepMetrics)``: the
     training forward, then ``train_losses`` against its own detached pseudo
-    labels, or against ``pseudo`` (B, H, W) where given."""
+    labels, or against ``pseudo`` (B, H, W) where given.  Over a
+    data-parallel ``mesh``, ``batch`` is this rank's slice of the global
+    batch (every rank the same size) and the loss its share."""
+    dp = meshlib.dp_only(mesh)
     g = cfg.dataset.crop_size // cfg.clip.patch_size
     rmask_np = losses.radius_mask(g, g, cfg.train.radius)
     rmasks: Dict[Any, torch.Tensor] = {}
@@ -103,19 +126,34 @@ def make_loss_fn(cfg: Config, policy: precision.Policy = precision.DEFAULT):
     def loss_fn(params, frozen, batch: weclip.Batch, require_seg_trans, gen,
                 cls_idx, cls_active, pseudo: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, StepMetrics]:
+        b = batch.img.shape[0]
+        rows = (mesh.rank * b, mesh.data * b) if dp else None
         out = weclip.forward_train(params, frozen, batch, cfg, require_seg_trans,
                                    gen, policy, cls_idx=cls_idx,
-                                   cls_active=cls_active)
+                                   cls_active=cls_active, batch_rows=rows)
         dev = out.seg.device
         if dev not in rmasks:
             rmasks[dev] = torch.from_numpy(rmask_np).to(dev)
         labels = out.cam_labels.detach() if pseudo is None else pseudo
-        return train_losses(cfg, out, labels, rmasks[dev])
+        return train_losses(cfg, out, labels, rmasks[dev],
+                            meshlib.psum if dp else None)
 
     return loss_fn
 
 
-def make_train_step(cfg: Config, policy: precision.Policy = precision.DEFAULT):
+def all_reduce_grads(leaves: List[torch.Tensor]) -> None:
+    """Sum the gradients of ``leaves`` over the ranks, in place, as one
+    flat buffer (one collective)."""
+    grads = [t.grad for t in leaves if t.grad is not None]
+    if not grads:
+        return
+    flat = meshlib.psum(torch.cat([g.reshape(-1) for g in grads]))
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
+
+
+def make_train_step(cfg: Config, policy: precision.Policy = precision.DEFAULT,
+                    mesh: Optional[meshlib.Mesh] = None):
     """Returns ``train_step(state, frozen, batch, rng=None, cls_idx=None,
     cls_active=None, extra_iter_num=0, pseudo=None) -> (state,
     StepMetrics)``.
@@ -125,8 +163,10 @@ def make_train_step(cfg: Config, policy: precision.Policy = precision.DEFAULT):
     training (validation) that advance the seg-trans gate, as the reference
     does.  ``pseudo``: labels (B, H, W) to train against in place of the
     forward's own, so that steps on two devices can be held to the same
-    labels.  Metrics are detached device scalars."""
-    loss_fn = make_loss_fn(cfg, policy)
+    labels.  Metrics are detached device scalars.  ``mesh``: data-parallel
+    ranks (see the module docstring); ``batch`` is this rank's slice."""
+    loss_fn = make_loss_fn(cfg, policy, mesh)
+    dp = meshlib.dp_only(mesh)
 
     def train_step(state: TrainState, frozen, batch: weclip.Batch,
                    rng: Optional[int] = None, cls_idx=None, cls_active=None,
@@ -140,6 +180,8 @@ def make_train_step(cfg: Config, policy: precision.Policy = precision.DEFAULT):
                                      gen, cls_idx, cls_active, pseudo)
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
+        if dp:
+            all_reduce_grads(param_leaves(state.params))
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1

@@ -1,5 +1,4 @@
-"""Iteration-based training loop (port of weclip_tpu/train/trainer.py, one
-card).
+"""Iteration-based training loop (port of weclip_tpu/train/trainer.py).
 
 Batches come from ``data/loader.py::PrefetchLoader``: a fresh permutation
 of the dataset per epoch from ``numpy.random.default_rng(train.seed)``,
@@ -21,6 +20,14 @@ or random weights where there is none.  Each logged window also goes to
 ``work_dir.dir/work_dir.tb_logger_dir/scalars.jsonl`` (utils/tb.py), and
 ``profile_steps`` traces a range of steps with ``torch.profiler`` into
 ``work_dir.dir/profile``.
+
+Under ``torchrun`` (``mesh.data_parallel`` ranks, parallel/mesh.py) every
+rank reads its own shard of each epoch at ``samples_per_gpu`` images, so
+the global batch is ``samples_per_gpu`` times the ranks, and the step
+reduces the losses' counts and the gradients over the ranks
+(train/step.py).  Rank 0 alone writes checkpoints, scalars, logs and
+profiles, and the ranks meet at a barrier after each checkpoint; every rank
+resumes from it, and validation sums its histograms over the ranks.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from weclip_tpu_torch.models import weclip
 from weclip_tpu_torch.models.clip import loader as clip_loader
 from weclip_tpu_torch.models.clip import prompts
 from weclip_tpu_torch.models.clip.vit import pos_emb_host
+from weclip_tpu_torch.parallel import mesh as meshlib
 from weclip_tpu_torch.train import checkpoint
 from weclip_tpu_torch.train import step as step_mod
 
@@ -78,14 +86,16 @@ def build_frozen(cfg: Config, rng_seed: int = 0, device="cuda"):
     return frozen, clip_params, cfg
 
 
-def make_batcher(cfg: Config, frozen: Dict, device
+def make_batcher(cfg: Config, frozen: Dict, device,
+                 mesh: Optional[meshlib.Mesh] = None
                  ) -> Callable[[Dict[str, np.ndarray]],
                                Tuple[weclip.Batch, torch.Tensor, torch.Tensor]]:
     """Returns ``to_device(host_batch) -> (batch, cls_idx, cls_active)``:
     host arrays of full square crops -> a ``weclip.Batch`` on ``device``
     (the positional embedding at the crop's grid, every token valid), and
     the batch's present classes compacted into the smallest class bucket
-    that holds them (core/compaction.py)."""
+    that holds them (core/compaction.py); over a data-parallel ``mesh``,
+    the largest bucket of any rank, so the ranks agree on one."""
     grid = cfg.dataset.crop_size // cfg.clip.patch_size
     pe_table = frozen["visual"]["positional_embedding"].float().cpu().numpy()
     pos_emb = torch.from_numpy(pos_emb_host(pe_table, grid, grid, grid, grid))[None].to(device)
@@ -102,7 +112,10 @@ def make_batcher(cfg: Config, frozen: Dict, device
             gw=torch.full((b,), grid, device=device),
             present_mask=dev(host_batch["present_mask"]).bool())
         present = host_batch["present_mask"]
-        ci, ca = compact_classes(present, pick_bucket(present, buckets))
+        mc = pick_bucket(present, buckets)
+        if meshlib.dp_only(mesh):
+            mc = int(meshlib.pmax(torch.tensor(mc)))
+        ci, ca = compact_classes(present, mc)
         return batch, dev(ci), dev(ca)
 
     return to_device
@@ -133,6 +146,9 @@ def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cu
     ``profile_steps=(start, end)`` traces steps start..end."""
     pc = cfg.precision
     policy = precision.make_policy(pc.compute_dtype, pc.param_dtype, pc.softmax_dtype)
+    mesh = meshlib.make_mesh(cfg.mesh.data_parallel, cfg.mesh.model_parallel)
+    lead = mesh.rank == 0
+    device = meshlib.local_device(device)
     if torch.device(device).type == "cuda":
         precision.strict_matmul()
     if frozen is None:
@@ -153,19 +169,24 @@ def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cu
         if val_dataset is not None:
             val_forward_calls = (step0 // cfg.train.eval_iters) * len(val_dataset)
         log.info("resumed from step %d", step0)
-    step_fn = step_mod.make_train_step(cfg, policy)
-    to_device = make_batcher(cfg, frozen, device)
+    step_fn = step_mod.make_train_step(cfg, policy, mesh)
+    to_device = make_batcher(cfg, frozen, device, mesh)
 
     bsz = cfg.train.samples_per_gpu
     total = max_steps or cfg.train.max_iters
-    loader = PrefetchLoader(dataset, bsz, seed=cfg.train.seed, start=state.step)
+    loader = PrefetchLoader(dataset, bsz, seed=cfg.train.seed, start=state.step,
+                            process_index=mesh.rank, process_count=mesh.data)
+    if lead:
+        log.info("global batch %d (%d per rank x %d ranks)", bsz * mesh.data, bsz,
+                 mesh.data)
     from weclip_tpu_torch.utils.tb import ScalarWriter
-    writer = ScalarWriter(os.path.join(cfg.work_dir.dir, cfg.work_dir.tb_logger_dir))
+    writer = (ScalarWriter(os.path.join(cfg.work_dir.dir, cfg.work_dir.tb_logger_dir))
+              if lead else None)
     prof = None
     msum, n_window, t_window = None, 0, time.perf_counter()
     try:
         for n_iter in range(state.step, total):
-            if profile_steps and n_iter == profile_steps[0]:
+            if lead and profile_steps and n_iter == profile_steps[0]:
                 prof = _start_profile(device)
             batch, ci, ca = to_device(next(loader))
             state, m = step_fn(state, frozen, batch, rng=cfg.train.seed + 1,
@@ -176,9 +197,9 @@ def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cu
             n_window += 1
             if prof is not None and n_iter == profile_steps[1]:
                 prof = _stop_profile(prof, cfg.work_dir.dir)
-            if (n_iter + 1) % cfg.train.log_iters == 0 or n_iter + 1 == total:
+            if lead and ((n_iter + 1) % cfg.train.log_iters == 0 or n_iter + 1 == total):
                 means = step_mod.StepMetrics(*(float(x) / n_window for x in msum))
-                rate = n_window * bsz / (time.perf_counter() - t_window)
+                rate = n_window * bsz * mesh.data / (time.perf_counter() - t_window)
                 log.info("iter %d/%d; img/s %.2f; loss %.4f; seg_loss %.4f; "
                          "attn_loss %.4f; pseudo_acc %.4f", n_iter + 1, total, rate,
                          *means)
@@ -189,22 +210,30 @@ def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cu
                 msum, n_window, t_window = None, 0, time.perf_counter()
             if (n_iter + 1) % cfg.train.eval_iters == 0:
                 if n_iter + 1 > cfg.train.ckpt_start_iter:
-                    log.info("saved %s", checkpoint.save(
-                        ckpt_dir, n_iter + 1, state.params, state.optimizer,
-                        state.scheduler))
+                    save_checkpoint(ckpt_dir, n_iter + 1, state, lead)
                 if val_dataset is not None:
                     scores = validate(cfg, state.params, frozen, val_dataset, policy,
                                       device=device)
-                    log.info("val seg: %s", scores["seg"])
-                    log.info("val cam: %s", scores["cam"])
+                    if lead:
+                        log.info("val seg: %s", scores["seg"])
+                        log.info("val cam: %s", scores["cam"])
                     val_forward_calls += len(val_dataset)
     finally:
         loader.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
         if prof is not None:
             _stop_profile(prof, cfg.work_dir.dir)
-    checkpoint.save(ckpt_dir, total, state.params, state.optimizer, state.scheduler)
+    save_checkpoint(ckpt_dir, total, state, lead)
     return state
+
+
+def save_checkpoint(ckpt_dir: str, step: int, state: step_mod.TrainState, lead: bool) -> None:
+    """Rank 0 saves the state; every rank waits until it is written."""
+    if lead:
+        log.info("saved %s", checkpoint.save(ckpt_dir, step, state.params,
+                                             state.optimizer, state.scheduler))
+    meshlib.barrier()
 
 
 def _start_profile(device):
