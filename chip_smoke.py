@@ -74,7 +74,12 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
 16. data parallel: two gloo ranks sharing the card, spawned by
    ``torch.multiprocessing``: 3 fp32 train steps at full width (crop 320, 2
    crops a rank) against one process at batch 4, and ``Evaluator.run``'s
-   summed histograms against one process's; a one-rank NCCL all-reduce;
+   summed histograms against one process's; a one-rank NCCL all-reduce and
+   mesh.  Then model parallel: two gloo ranks as a mesh of data 1 x model
+   2, the frozen MLPs split between them, against one process at full
+   width: 3 fp32 steps, the ranks' gradients equal, GradCAM,
+   ``Evaluator.run``'s histograms, one bf16 step (``run_model_parallel``);
+   and the TensorBoard image helpers on the host;
 17. one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2383,6 +2388,7 @@ def run_data_parallel(work: str, card: str):
     import torch.multiprocessing as mp
 
     from weclip_tpu_torch.core import precision
+    from weclip_tpu_torch.parallel import mesh as meshlib
 
     out_dir = os.path.join(work, "dp")
     os.makedirs(out_dir)
@@ -2409,7 +2415,8 @@ def run_data_parallel(work: str, card: str):
         dist.all_reduce(y)
         dist.barrier()
         torch.cuda.synchronize()
-        nccl_ok = bool(torch.equal(x, y)) and dist.get_backend() == "nccl"
+        nccl_ok = (bool(torch.equal(x, y)) and dist.get_backend() == "nccl"
+                   and meshlib.make_mesh(-1, 1) == meshlib.Mesh(data=1, rank=0))
     finally:
         dist.destroy_process_group()
     res = {"spawn_and_children_s": spawn_s, "losses_one_process": losses,
@@ -2431,6 +2438,248 @@ def run_data_parallel(work: str, card: str):
         raise AssertionError(f"data parallel: {res}")
     torch.cuda.empty_cache()
     return res
+
+
+MP_WORLD = 2          # the model-parallel run: data 1 x model 2
+
+
+def mp_work(mesh, steps: int = 3):
+    """What each rank of the model-parallel run and one process (``mesh``
+    None) compute at full width on the card: the frozen MLP leaves' shapes;
+    ``steps`` fp32 train steps at batch 2 on fixed block labels (losses,
+    each step's gradients, the parameters before the first step and after
+    the last, seconds);
+    GradCAM of one crop, 20 classes, through ``cam_single`` (fp32);
+    ``Evaluator.run`` (fp32) over 2 labelled VOC-size images; one bf16 step
+    (loss, parameters)."""
+    import torch
+
+    from weclip_tpu_torch.cam import variants
+    from weclip_tpu_torch.core import precision
+    from weclip_tpu_torch.evalx.runner import Evaluator, make_prep
+    from weclip_tpu_torch.models import weclip
+    from weclip_tpu_torch.models.clip import vit
+    from weclip_tpu_torch.parallel import mesh as meshlib
+    from weclip_tpu_torch.train import step as step_mod
+    from weclip_tpu_torch.train.trainer import make_batcher
+
+    cfg = dp_config()
+    crop, k = cfg.dataset.crop_size, cfg.dataset.num_classes
+    frozen = weclip.random_frozen_state(cfg, seed=0, device="cuda")
+    if mesh is not None:
+        frozen = meshlib.shard_model(mesh, frozen)
+    mlp = frozen["visual"]["blocks"]["mlp"]
+    out = {"shapes": {n: tuple(t.shape) for n, t in mlp.items() if torch.is_tensor(t)}}
+    to_device = make_batcher(cfg, frozen, "cuda", mesh)
+
+    def train(policy, n):
+        state = step_mod.create_train_state(torch.Generator().manual_seed(1), cfg, "cuda")
+        start = [t.detach().cpu().clone() for t in step_mod.param_leaves(state.params)]
+        step_fn = step_mod.make_train_step(cfg, policy, mesh)
+        losses, grads = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(n):
+            batch, ci, ca = to_device(synthetic_train_batch(cfg, 2, seed=60 + s))
+            pseudo = torch.from_numpy(block_labels(2, crop, k, 70 + s)).cuda()
+            state, m = step_fn(state, frozen, batch, rng=9, cls_idx=ci, cls_active=ca,
+                               pseudo=pseudo)
+            losses.append(float(m.loss))
+            grads.append([(name, t.grad.cpu().clone()) for name, t in named_leaves(state.params)])
+        torch.cuda.synchronize()
+        return {"losses": losses, "grads": grads, "seconds": time.perf_counter() - t0,
+                "start": start,
+                "params": [t.detach().cpu().clone() for t in step_mod.param_leaves(state.params)]}
+
+    out["fp32"] = train(precision.FP32, steps)
+    batch, _, _ = to_device(synthetic_train_batch(cfg, 1, seed=80))
+    x11 = vit.vision_forward_frozen(frozen["visual"], batch.img, batch.pos_emb, batch.valid,
+                                    cfg.clip, policy=precision.FP32).layer_tokens[-1][0]
+    text = torch.cat([frozen["fg_text"], frozen["bg_text"]])
+    out["cams"] = variants.cam_single(
+        "grad_cam", frozen["visual"], frozen["logit_scale"], x11, text,
+        torch.ones(text.shape[0], dtype=torch.bool, device="cuda"), batch.valid[0],
+        torch.arange(k - 1, device="cuda"), cfg.clip, precision.FP32).cpu()
+    params = weclip.init_trainable_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    ev = Evaluator(cfg, make_prep(cfg, max_ori=512, resize_long=cfg.eval.resize_long),
+                   frozen["visual"]["positional_embedding"].cpu().numpy(),
+                   policy=precision.FP32, device="cuda")
+    out["hists"] = ev.run(params, frozen, labelled_voc_examples(2, seed=11),
+                          return_hists=True)["hists"]
+    out["bf16"] = train(precision.make_policy("bfloat16"), 1)
+    return out
+
+
+def mp_child(rank: int, init_file: str, out_dir: str):
+    """One rank of the model-parallel run: gloo over a ``file://``
+    rendezvous, the card shared with the other rank; a collective that
+    waits 600 s raises."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from weclip_tpu_torch.core import precision
+    from weclip_tpu_torch.parallel import mesh as meshlib
+
+    precision.strict_matmul()
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=MP_WORLD, timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = meshlib.make_mesh(1, MP_WORLD)
+        if (mesh.data, mesh.model, mesh.model_rank) != (1, MP_WORLD, rank):
+            raise AssertionError(f"rank {rank}: mesh {mesh}")
+        torch.save(mp_work(mesh), os.path.join(out_dir, f"mp_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_model_parallel(work: str, card: str):
+    """Phase 16's model-parallel run: two gloo ranks sharing the card as a
+    mesh of data 1 x model 2, the frozen MLPs split between them
+    (``shard_model``), against one process with the whole tree, at full
+    width (``mp_work``).  Holds: each rank's MLP leaves half of the whole;
+    fp32 losses within 1e-5 (relative) and the first step's gradients
+    within 1e-5 of each leaf's largest; the two ranks' gradients equal at
+    every step; each
+    leaf's update over 3 steps within 5e-2 relative (L2) of one process's;
+    GradCAM within 1e-5; ``Evaluator.run``'s histograms totalling the
+    labelled pixels and at most 1e-4 of them apart from one process's; the
+    bf16 step within rtol 5e-3 / atol 5e-4 of one process's (the JAX
+    package's bound: a partial rounded to bf16 before the sum).
+
+    The parameters after 3 steps are also measured against the JAX
+    package's elementwise bound for one step (rtol 5e-5, atol 1e-7), and
+    so are the later steps' gradients, neither held: AdamW divides
+    each element's gradient by its own size, so an element whose gradient
+    sits at the fp32 noise floor (the decoder's key bias, which softmax
+    ignores, has a true gradient of 0) moves by up to the learning rate in
+    a direction that the summation order picks, and the next steps'
+    gradients follow those parameters.  A CAM or logit near a tie flips
+    with a rounding of 1e-7, hence the pixel budget.  The step times are a correctness
+    set-up's, not a scaling figure: one card shared, and the MLP sums go
+    through the host.  Returns the measurements."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from weclip_tpu_torch.core import precision
+
+    out_dir = os.path.join(work, "mp")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    mp.spawn(mp_child, args=(os.path.join(out_dir, "rendezvous"), out_dir),
+             nprocs=MP_WORLD, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"mp_rank{r}.pt"), weights_only=False)
+             for r in range(MP_WORLD)]
+    precision.strict_matmul()
+    one = mp_work(None)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    fp, one_fp = [r["fp32"] for r in ranks], one["fp32"]
+    loss_rel = max(rel(a, b) for r in fp for a, b in zip(r["losses"], one_fp["losses"]))
+    grad_rel = [max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                    for r in fp for (_, g), (_, w) in zip(r["grads"][s], one_fp["grads"][s]))
+                for s in range(len(one_fp["grads"]))]
+    grads_equal = all(torch.equal(a, b) for ga, gb in zip(fp[0]["grads"], fp[1]["grads"])
+                      for (_, a), (_, b) in zip(ga, gb))
+    names = [n for n, _ in one_fp["grads"][0]]
+    update_rel = {}
+    for r in fp:
+        for n, p0, a, b in zip(names, one_fp["start"], r["params"], one_fp["params"]):
+            d = float(((a - p0) - (b - p0)).norm() / (b - p0).norm().clamp_min(1e-30))
+            update_rel[n] = max(update_rel.get(n, 0.0), d)
+
+    def excess(got, want, rtol, atol):
+        """Largest |got - want| / (atol + rtol |want|) over the leaves (1:
+        at the bound), and its leaf."""
+        return max((float(((g - w).abs() / (atol + rtol * w.abs())).max()), n)
+                   for n, g, w in zip(names, got, want))
+
+    jax_bound = max(excess(r["params"], one_fp["params"], 5e-5, 1e-7) for r in fp)
+    full, half = one["shapes"], ranks[0]["shapes"]
+    halves = (all(r["shapes"] == half for r in ranks)
+              and half["fc_w"][1] * 2 == full["fc_w"][1] and half["fc_b"][1] * 2 == full["fc_b"][1]
+              and half["proj_w"][2] * 2 == full["proj_w"][2]
+              and half["proj_b"] == full["proj_b"])
+    cam_err = max(max_err(r["cams"], one["cams"]) for r in ranks)
+    labelled = sum(int((ex["label"] != 255).sum()) for ex in labelled_voc_examples(2, seed=11))
+    apart = {k: max(int(np.abs(r["hists"][k] - h).sum()) // 2 for r in ranks)
+             for k, h in one["hists"].items()}
+    totals = {k: int(h.sum()) for k, h in one["hists"].items()}
+    totals_ok = all(int(h.sum()) == labelled for r in ranks + [one] for h in r["hists"].values())
+    bf16_loss_rel = max(rel(r["bf16"]["losses"][0], one["bf16"]["losses"][0]) for r in ranks)
+    bf16_excess = max(excess(r["bf16"]["params"], one["bf16"]["params"], 5e-3, 5e-4)
+                      for r in ranks)
+    res = {"spawn_and_children_s": spawn_s, "shapes_rank": half, "shapes_whole": full,
+           "losses_ranks": [r["losses"] for r in fp], "losses_one_process": one_fp["losses"],
+           "loss_max_rel_err": loss_rel, "grad_max_rel_err_by_step": grad_rel,
+           "rank_grads_equal": grads_equal, "update_max_rel_l2": max(update_rel.values()),
+           "update_rel_l2": update_rel, "params_jax_bound_excess": jax_bound,
+           "cam_max_abs_err": cam_err, "hist_pixels_apart": apart, "hist_totals": totals,
+           "labelled_pixels": labelled, "bf16_loss_rel_err": bf16_loss_rel,
+           "bf16_param_excess_of_bound": bf16_excess,
+           "steps_s_rank": [r["seconds"] for r in fp], "steps_s_one_process": one_fp["seconds"]}
+    print(f"[mp] data 1 x model 2, 2 gloo ranks on one card ({spawn_s:.1f} s with start-up),"
+          f" MLP leaves a rank {json.dumps(half)} of {json.dumps(full)}: 3 fp32 steps at "
+          f"batch 2, losses {json.dumps(res['losses_ranks'])} vs one process "
+          f"{json.dumps(one_fp['losses'])}: max rel err {loss_rel:.3e} (tol 1e-5); gradients "
+          f"max err / leaf's largest by step {json.dumps([float(f'{g:.3e}') for g in grad_rel])} "
+          f"(tol 1e-5 at the first), equal on the two ranks: {grads_equal}; 3-step update max rel L2 err "
+          f"{res['update_max_rel_l2']:.3e} (tol 5e-2); parameters at {jax_bound[0]:.3f} of "
+          f"the JAX bound rtol 5e-5 / atol 1e-7 (at {jax_bound[1]}; not held); GradCAM "
+          f"(cam_single, 20 classes) max err {cam_err:.3e} (tol 1e-5); Evaluator.run fp32 "
+          f"histograms pixels apart from one process {json.dumps(apart)} (tol "
+          f"{labelled // 10000}), totals {json.dumps(totals)} of {labelled} labelled pixels; "
+          f"bf16 step loss rel err {bf16_loss_rel:.3e} (tol 5e-3), parameters at "
+          f"{bf16_excess[0]:.3f} of rtol 5e-3 / atol 5e-4; 3 fp32 steps took "
+          f"{json.dumps(res['steps_s_rank'])} s a rank vs {one_fp['seconds']:.2f} s in one "
+          f"process (a correctness set-up, not a scaling figure: one card shared, the MLP "
+          f"sums through the host); on {card}", flush=True)
+    if (loss_rel > 1e-5 or grad_rel[0] > 1e-5 or not grads_equal or not halves
+            or res["update_max_rel_l2"] > 5e-2 or cam_err > 1e-5
+            or max(apart.values()) > labelled // 10000
+            or not totals_ok or bf16_loss_rel > 5e-3 or bf16_excess[0] > 1.0):
+        raise AssertionError(f"model parallel: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_tensorboard_helpers(card: str):
+    """The TensorBoard image helpers of ``utils/imutils.py`` on seeded
+    images, CAMs and attention maps, on this host (which may lack
+    matplotlib: then the closed-form jet colours them): uint8 grids of the
+    expected shapes.  Returns their shapes and whether matplotlib imported."""
+    from weclip_tpu_torch.utils import imutils
+
+    rng = np.random.default_rng(90)
+    imgs = rng.standard_normal((4, 3, 320, 320)).astype(np.float32)
+    cam = rng.uniform(0, 1, (4, 20, 20, 20)).astype(np.float32)
+    attn = rng.uniform(0, 1, (14, 4, 400, 400)).astype(np.float32)
+    attns = list(attn / attn.sum(-1, keepdims=True))
+    labels = rng.integers(0, 21, (4, 320, 320))
+    img_grid, cam_grid = imutils.tensorboard_image(imgs, cam)
+    grids = {"image": img_grid, "cam": cam_grid,
+             "edge": imutils.tensorboard_edge(cam[:, :1]),
+             "attn": imutils.tensorboard_attn(attns),
+             "label": imutils.tensorboard_label(labels)}
+    attn2 = imutils.tensorboard_attn2(attns)
+    want = {"image": (3, 646, 646), "cam": (3, 646, 646), "edge": (3, 454, 454),
+            "attn": (3, 3166, 906), "label": (3, 646, 646)}
+    shapes = {k: tuple(g.shape) for k, g in grids.items()}
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    ok = (shapes == want and all(g.dtype == np.uint8 for g in grids.values())
+          and len(attn2) == 8 and all(g.dtype == np.uint8 and g.shape[0] == 3 for g in attn2))
+    print(f"[tb] TensorBoard helpers on the host (matplotlib imports: {has_mpl}): uint8 "
+          f"grids {json.dumps(shapes)}, tensorboard_attn2 {len(attn2)} grids; {card}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"TensorBoard helpers: {shapes} vs {want}, attn2 "
+                             f"{[(g.dtype, g.shape) for g in attn2]}")
+    return {"shapes": shapes, "matplotlib": has_mpl}
 
 
 def profile_pipeline(pipe, ims, ids, reps: int = 3, tag: str = ""):
@@ -2543,6 +2792,8 @@ def main() -> int:
             cfg_path, os.path.join(work, "step_00000006"), card)
         launches.update(phase_launches)
         results["data_parallel"] = run_data_parallel(work, card)
+        results["model_parallel"] = run_model_parallel(work, card)
+        results["tensorboard"] = run_tensorboard_helpers(card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for name in kernels.launches:

@@ -14,7 +14,8 @@ no JAX) and run on one thread each; one spawn a scenario.
 3. ``Evaluator.run`` over 5 images (a ragged shard), without and with the
    native CRF: int64 histograms equal to one process, the same scores on
    every rank;
-4. ``--mesh 2`` in one process raises the ValueError that names torchrun.
+4. ``--mesh 2`` in one process, and a model width of 2, raise the
+   ValueError that names torchrun.
 """
 
 import dataclasses
@@ -232,7 +233,9 @@ def test_mesh_above_one_needs_torchrun(mesh):
         eval_voc.main(["--mesh", mesh, "--device", "cpu"])
     with pytest.raises(ValueError, match="torchrun"):
         meshlib.make_mesh(int(mesh))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a model width of 2 builds a mesh of 2 processes (test_torch_tensor_parallel.py);
+    # one process is too few
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         meshlib.make_mesh(1, model_parallel=2)
     assert meshlib.make_mesh(-1) == meshlib.Mesh(data=1, rank=0)
     assert meshlib.local_device("cuda") == "cuda"

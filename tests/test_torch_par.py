@@ -115,6 +115,18 @@ def test_resize_bilinear_matches_jax(align, hw_in, hw_out):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("hw_in,hw_out", [((7, 9), (16, 12)), ((20, 20), (5, 3)),
+                                          ((5, 5), (5, 5))])
+def test_resize_nearest_matches_jax(dtype, hw_in, hw_out):
+    """Torch's nearest rule, index for index (exact, any dtype)."""
+    x = (np.random.default_rng(4).standard_normal((2, 3) + hw_in) * 50).astype(dtype)
+    ref = np.asarray(jresize.resize_nearest(jnp.asarray(x), *hw_out))
+    got = tresize.resize_nearest(torch.from_numpy(x), *hw_out)
+    assert got.dtype == torch.from_numpy(x).dtype
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 def test_upsample_pos_emb_matches_jax():
     pe = np.random.default_rng(3).standard_normal((1 + 14 * 14, 8)).astype(np.float32)
     ref = np.asarray(jresize.upsample_pos_emb(jnp.asarray(pe), 6, 9))

@@ -102,6 +102,34 @@ def test_vision_forward_frozen_attn_rows(models):
                                rtol=FWD_TOL, atol=FWD_TOL)
 
 
+@pytest.mark.parametrize("gh,gw,pad", [(4, 4, None), (3, 5, (6, 6)), (7, 2, (7, 4))])
+def test_build_pos_emb_matches_jax(models, gh, gw, pad):
+    frozen, tfrozen = models[2], models[4]
+    pad_gh, pad_gw = pad or (None, None)
+    ref = jvit.build_pos_emb(frozen["visual"], gh, gw, pad_gh, pad_gw)
+    got = tvit.build_pos_emb(tfrozen["visual"], gh, gw, pad_gh, pad_gw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+
+
+def test_head_forward_matches_jax(models):
+    """The fuse head and the decoder in one call (fp32, no dropout), on a
+    partly invalid grid."""
+    from weclip_tpu.models import heads as jheads
+    from weclip_tpu_torch.models import heads as theads
+    params, tparams = models[3], models[5]
+    rng = np.random.default_rng(7)
+    tokens = rng.standard_normal((3, 2, 16, 64)).astype(np.float32)
+    valid = np.ones((2, 16), bool)
+    valid[1, 10:] = False
+    ref = jheads.head_forward(params["head"], jnp.asarray(tokens),
+                              valid_p=jnp.asarray(valid), policy=jprec.FP32)
+    got = theads.head_forward(tparams["head"], torch.from_numpy(tokens),
+                              valid_p=torch.from_numpy(valid), policy=tprec.FP32)
+    for name, a, r in zip(("seg", "fused", "attn"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=FWD_TOL, atol=FWD_TOL,
+                                   err_msg=name)
+
+
 def test_gradcam_batch_matches_jax(models):
     """(d) GradCAM over a class bucket: the port expands the ln_1 output
     over the bucket and runs one backward; JAX vmaps its pullback."""
@@ -180,6 +208,50 @@ def test_scoremap_box_mask_matches_jax():
     ref_cc = jax.vmap(jbbox.connected_components)(jnp.asarray(cams > 0.5))
     np.testing.assert_array_equal(tbbox.connected_components(binary).numpy(),
                                   np.asarray(ref_cc))
+
+
+def test_box_iou_matches_jax():
+    """Pairwise IoU of integer boxes, degenerate pairs included (exact)."""
+    rng = np.random.default_rng(5)
+    xy = rng.integers(0, 20, (9, 2))
+    a = np.concatenate([xy, xy + rng.integers(-2, 8, (9, 2))], axis=1)
+    b = np.concatenate([xy[:6] + 1, xy[:6] + rng.integers(-3, 6, (6, 2))], axis=1)
+    a[0] = (5, 5, 3, 3)                  # an empty box against every other
+    b[0] = (5, 5, 2, 3)                  # zero union with a[0]
+    got = tbbox.box_iou(a, b)
+    assert got.shape == (9, 6) and got.dtype == np.float64
+    np.testing.assert_array_equal(got, jbbox.box_iou(a, b))
+
+
+@pytest.mark.parametrize("align", [False, True])
+@pytest.mark.parametrize("in_size,out_size,canvas,src_pad",
+                         [(7, 13, 16, 8), (20, 15, 15, 20), (5, 1, 4, 6), (1, 9, 12, 3)])
+def test_host_resize_matrices_match_jax(in_size, out_size, canvas, src_pad, align):
+    """The host matrices of evalx/operators.py against the JAX package's
+    (exact) and against the port's device versions, which form the source
+    coordinates in fp32 (within 1e-5 at these sizes)."""
+    from weclip_tpu.evalx import operators as jops
+    from weclip_tpu_torch.evalx import operators as tops
+    got = tops.clamp_resize_matrix(in_size, out_size, canvas, src_pad, align)
+    np.testing.assert_array_equal(
+        got, jops.clamp_resize_matrix(in_size, out_size, canvas, src_pad, align))
+    dev = tops.device_resize_matrix(torch.tensor([in_size]), torch.tensor([out_size]),
+                                    canvas, src_pad, align)[0]
+    np.testing.assert_allclose(got, dev.numpy(), rtol=0, atol=1e-5)
+    for scale in (0.75, 1.5):
+        out = max(int(in_size * scale), 1)
+        np.testing.assert_array_equal(tops.scale_factor_matrix(in_size, out, scale),
+                                      jops.scale_factor_matrix(in_size, out, scale))
+
+
+def test_resize_by_scale_matches_jax():
+    from weclip_tpu.evalx import operators as jops
+    from weclip_tpu_torch.evalx import operators as tops
+    img = np.random.default_rng(6).uniform(0, 255, (3, 37, 50)).astype(np.float32)
+    for scale in (0.75, 0.5, 1.25):
+        hw = (int(37 * scale), int(50 * scale))
+        np.testing.assert_array_equal(tops.resize_by_scale(img, hw, scale),
+                                      jops.resize_by_scale(img, hw, scale))
 
 
 def test_sinkhorn_walk_and_fusion_match_jax():

@@ -360,6 +360,24 @@ def test_validate_matches_jax():
     assert got["cam"]["miou"] > 0
 
 
+@pytest.mark.parametrize("warmup,max_iters", [(0, 5), (3, 10), (2, 6)])
+def test_lr_schedules_match_jax(warmup, max_iters):
+    """The learning rate at step t of both schedules, past the end too,
+    against the JAX package's, within 1e-6 of the rate or 1e-6 of the base
+    rate: JAX forms the warmup's 1 - (1 - t / W)(1 - ratio) in float32,
+    1.013e-6 at t = 0 for the exact 1e-6."""
+    ocfg = jconfig.OptimizerConfig(learning_rate=1e-3, warmup_iter=warmup, power=0.9)
+    tcfg = tconfig.OptimizerConfig(**dataclasses.asdict(ocfg))
+    for tfn, jfn in ((toptim.poly_warmup_schedule, joptim.poly_warmup_schedule),
+                     (toptim.sgd_poly_warmup_schedule, joptim.sgd_poly_warmup_schedule)):
+        if warmup == 0 and tfn is toptim.sgd_poly_warmup_schedule:
+            continue          # SGD's warmup term divides by warmup_iter
+        got, ref = tfn(tcfg, max_iters, 2e-4), jfn(ocfg, max_iters, 2e-4)
+        for t in range(max_iters + 3):
+            assert got(t) == pytest.approx(float(ref(jnp.asarray(t))), rel=1e-6,
+                                           abs=1e-6 * 2e-4)
+
+
 def test_sgd_matches_optax():
     """Three poly-warmup SGD updates against the JAX package's optax chain
     on the same gradients, across the warmup boundary (the multiplier falls

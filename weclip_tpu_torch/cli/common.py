@@ -2,8 +2,10 @@
 the work-dir layout, config and flag parsing.
 
 The flags are the JAX package's, so command lines carry over, plus
-``--device`` (default ``cuda``).  ``--mesh N`` runs on N ranks, one process
-per card started by ``torchrun --nproc_per_node N`` (parallel/mesh.py).
+``--device`` (default ``cuda``).  ``--mesh N`` runs on N ranks in all, one
+process per card started by ``torchrun --nproc_per_node N``: N /
+``mesh.model_parallel`` data ranks, each a model group of
+``mesh.model_parallel`` (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -96,17 +98,32 @@ def eval_parser(default_config: str | None = None) -> argparse.ArgumentParser:
 
 def add_mesh_arg(p: argparse.ArgumentParser):
     p.add_argument("--mesh", default=-1, type=int,
-                   help="ranks to evaluate on (-1 or 0: every process of the run): "
-                        "N > 1 needs N processes, started by torchrun "
-                        "--nproc_per_node N; eval.batch_images is per rank")
+                   help="ranks in all (-1 or 0: every process of the run): N > 1 "
+                        "needs N processes, started by torchrun --nproc_per_node N, "
+                        "and is a (data, model) mesh whose model width is "
+                        "cfg.mesh.model_parallel (so it must divide N); "
+                        "eval.batch_images is per data rank")
 
 
 def build_eval_mesh(args, cfg: Config):
-    """The ranks of ``--mesh`` (parallel/mesh.py::make_mesh, which starts
-    the process group under ``torchrun`` and raises ``ValueError`` when the
-    run has another number of processes) and this rank's device."""
+    """The mesh of ``--mesh`` and this rank's device: ``--mesh`` /
+    ``cfg.mesh.model_parallel`` data ranks (parallel/mesh.py::make_mesh,
+    which starts the process group under ``torchrun`` and raises
+    ``ValueError`` when the run has another number of processes).  Raises
+    ``SystemExit`` when ``--mesh`` is not a multiple of the model width.
+    Shard the frozen tree over it with ``meshlib.shard_model``."""
     from weclip_tpu_torch.parallel import mesh as meshlib
-    mesh = meshlib.make_mesh(getattr(args, "mesh", -1), cfg.mesh.model_parallel)
+    model = max(cfg.mesh.model_parallel, 1)
+    total = getattr(args, "mesh", -1)
+    data = -1
+    if total not in (-1, 0, None):
+        if total % model:
+            raise SystemExit(
+                f"--mesh {total} is not a multiple of cfg.mesh.model_parallel="
+                f"{model}; pass a total rank count divisible by the "
+                f"tensor-parallel width (or set mesh.model_parallel in the config)")
+        data = total // model
+    mesh = meshlib.make_mesh(data, model)
     return mesh, meshlib.local_device(args.device)
 
 

@@ -47,9 +47,12 @@ def run_eval(cfg, args, dataset_name: str, with_cam: bool = None):
     from weclip_tpu_torch.core import precision
     from weclip_tpu_torch.evalx.runner import Evaluator, make_prep
 
-    _, device = common.build_eval_mesh(args, cfg)
+    from weclip_tpu_torch.parallel.mesh import shard_model
+
+    mesh, device = common.build_eval_mesh(args, cfg)
     policy = precision.make_policy(cfg.precision.compute_dtype)
     frozen, params, cfg = load_eval_model(cfg, args, device)
+    frozen = shard_model(mesh, frozen)
     if dataset_name == "coco":
         from weclip_tpu_torch.data.coco import CocoSegDataset
         ds = CocoSegDataset(cfg.dataset, split=args.eval_set)

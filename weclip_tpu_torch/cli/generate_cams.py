@@ -7,8 +7,10 @@ Usage:
     python -m weclip_tpu_torch.cli.generate_cams --config configs/voc.yaml \
         --split train_aug --out cams/
 
-Under ``torchrun --nproc_per_node N ... --mesh N`` each rank writes the
-strided shard ``range(n)[rank::N]`` of the images.
+Under ``torchrun --nproc_per_node N ... --mesh N`` each of the D = N /
+``mesh.model_parallel`` data ranks computes the strided shard
+``range(n)[data_rank::D]`` of the images with its model group, whose first
+rank writes it.
 """
 
 from __future__ import annotations
@@ -43,11 +45,13 @@ def main(argv=None):
     from weclip_tpu_torch.core import precision
     from weclip_tpu_torch.core.config import Config, load_config
     from weclip_tpu_torch.evalx.runner import Evaluator, make_prep
+    from weclip_tpu_torch.parallel.mesh import shard_model
     from weclip_tpu_torch.train.trainer import build_frozen
 
     cfg = load_config(args.config) if args.config else Config()
     mesh, device = common.build_eval_mesh(args, cfg)
     frozen, _, cfg = build_frozen(cfg, device=device)
+    frozen = shard_model(mesh, frozen)
     policy = precision.make_policy(cfg.precision.compute_dtype)
     if cfg.dataset.name == "coco":
         from weclip_tpu_torch.data.coco import CocoSegDataset as DS
@@ -64,7 +68,9 @@ def main(argv=None):
     os.makedirs(args.out, exist_ok=True)
     bsz = cfg.eval.batch_images
     n = len(ds) if args.max_images is None else min(len(ds), args.max_images)
-    mine = list(range(n))[mesh.rank::mesh.data]
+    # a model group computes its shard together; its first rank writes
+    mine = list(range(n))[mesh.data_rank::mesh.data]
+    writes = mesh.model_rank == 0
     for s in range(0, len(mine), bsz):
         examples = [ds[i] for i in mine[s:s + bsz]]
         n_real = len(examples)
@@ -72,13 +78,12 @@ def main(argv=None):
             examples.append(examples[-1])
         sb1, _, sizes, _, presents, _, _ = ev.build_batch(examples)
         highres = cams_for_batch(frozen, sb1, presents, sizes).float().cpu().numpy()
-        for j in range(n_real):
-            ex = examples[j]
+        for ex, cams in zip(examples[:n_real] if writes else [], highres):
             oh, ow = ex["label"].shape
             keys = np.where(np.asarray(ex["present_mask"]))[0]
             np.save(os.path.join(args.out, ex["name"] + ".npy"),
                     {"keys": keys,
-                     "attn_highres": highres[j, keys, :oh, :ow].astype(np.float16)})
+                     "attn_highres": cams[keys, :oh, :ow].astype(np.float16)})
         log.info("%d / %d", min(s + bsz, len(mine)), len(mine))
 
 

@@ -7,9 +7,10 @@ Usage:
     python -m weclip_tpu_torch.cli.train_voc_seg --config configs/voc.yaml
     torchrun --nproc_per_node N -m weclip_tpu_torch.cli.train_voc_seg ...
 
-Under ``torchrun`` each of the ``mesh.data_parallel`` ranks reads its own
-shard at ``samples_per_gpu`` images (parallel/mesh.py); rank 0 writes the
-checkpoints and the log.
+Under ``torchrun`` each of the ``mesh.data_parallel`` data ranks reads its
+own shard at ``samples_per_gpu`` images, the ranks of a model group
+(``mesh.model_parallel``) the same one against their slices of the frozen
+MLPs (parallel/mesh.py); rank 0 writes the checkpoints and the log.
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ def main(argv=None):
     device = meshlib.local_device(args.device)
     policy = precision.make_policy(cfg.precision.compute_dtype)
     frozen, _, cfg = build_frozen(cfg, device=device)
+    frozen = meshlib.shard_model(mesh, frozen)
     ckpt_dir = os.path.join(cfg.work_dir.dir, cfg.work_dir.ckpt_dir)
     params, saved, start = None, None, 0
     if args.resume and checkpoint.latest_step(ckpt_dir) is not None:
@@ -78,7 +80,7 @@ def main(argv=None):
     to_device = make_batcher(cfg, frozen, device)
     loader = PrefetchLoader(VOCSegTrainDataset(cfg.dataset, cfg.train.split),
                             cfg.train.samples_per_gpu, seed=cfg.train.seed, start=start,
-                            process_index=mesh.rank, process_count=mesh.data)
+                            process_index=mesh.data_rank, process_count=mesh.data)
     lead = mesh.rank == 0
     try:
         for n_iter in range(start, cfg.train.max_iters):

@@ -5,7 +5,8 @@ An own copy of ``weclip_tpu/core/config.py`` (the port imports nothing of
 the JAX package).  Field names and defaults are identical, so a bare
 ``Config()`` is the reference VOC setup and ``load_config`` overlays the same
 YAML files.  The ``mesh`` section keeps the JAX package's fields: here
-``data_parallel`` counts ``torch.distributed`` ranks (parallel/mesh.py);
+``data_parallel`` and ``model_parallel`` count ``torch.distributed`` ranks
+(parallel/mesh.py);
 ``_apply`` ignores keys of sections this copy does not have.
 """
 
@@ -120,11 +121,11 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    # the JAX package's device mesh; here ``data_parallel`` counts ranks
+    # the JAX package's device mesh; here both widths count ranks
     data_axis: str = "data"
     model_axis: str = "model"
-    data_parallel: int = -1                # -1 = the whole world
-    model_parallel: int = 1                # > 1 is not ported
+    data_parallel: int = -1                # -1 = the world / model_parallel
+    model_parallel: int = 1                # ranks that split the frozen MLPs
 
 
 @dataclass(frozen=True)

@@ -1,15 +1,79 @@
 """Per-image resize operators for shape-static evaluation
-(port of the device builders in weclip_tpu/evalx/operators.py).
+(port of weclip_tpu/evalx/operators.py).
 
 Each variable-size bilinear resize is a pair of per-image interpolation
 matrices on fixed canvases; rows past an image's true extent clamp to its
 last row, so canvas padding is edge-replicated (which makes PAR's replicate
-padding exact on the padded canvas).  Built on the device from the sizes,
-batched over images."""
+padding exact on the padded canvas).  The evaluation path builds them on
+the device from the sizes, batched over images (``device_*``); the host
+versions (numpy, cached) give the same matrices for one size at a time,
+and ``resize_by_scale`` resizes one image on the host with torch's
+``scale_factor`` coordinates."""
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
+
+
+def _src_coords(dst: np.ndarray, in_size: int, out_size: int,
+                align_corners: bool) -> np.ndarray:
+    if align_corners and out_size > 1:
+        src = dst * (in_size - 1) / (out_size - 1)
+    elif align_corners:
+        src = np.zeros_like(dst)
+    else:
+        src = (dst + 0.5) * (in_size / out_size) - 0.5
+    return np.clip(src, 0.0, in_size - 1)
+
+
+def _hat_rows(src: np.ndarray, in_size: int, n_cols: int) -> np.ndarray:
+    """(len(src), n_cols) float32 bilinear rows at source coordinates
+    ``src``, already clamped to the ``in_size`` source cells."""
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    w_hi = src - lo
+    m = np.zeros((len(src), n_cols), dtype=np.float32)
+    rows = np.arange(len(src))
+    # lo == hi only at the clamp boundary, where w_hi == 0
+    m[rows, hi] = w_hi
+    m[rows, lo] += 1.0 - w_hi
+    return m
+
+
+@lru_cache(maxsize=4096)
+def clamp_resize_matrix(in_size: int, out_size: int, canvas: int, src_pad: int,
+                        align_corners: bool = False) -> np.ndarray:
+    """(canvas, src_pad) bilinear matrix: rows below ``out_size``
+    interpolate the first ``in_size`` source cells, later rows repeat row
+    ``out_size - 1`` (edge replication into the canvas padding).  Cached:
+    the result is shared, do not write to it."""
+    dst = np.minimum(np.arange(canvas, dtype=np.float64), out_size - 1)
+    return _hat_rows(_src_coords(dst, in_size, out_size, align_corners), in_size,
+                     src_pad)
+
+
+@lru_cache(maxsize=4096)
+def scale_factor_matrix(in_size: int, out_size: int, scale: float) -> np.ndarray:
+    """(out_size, in_size) bilinear matrix with torch's ``scale_factor``
+    coordinates, src = (dst + 0.5) / scale - 0.5 (not out / in: the two
+    differ where in * scale is fractional).  Cached like
+    ``clamp_resize_matrix``."""
+    dst = np.arange(out_size, dtype=np.float64)
+    src = np.clip((dst + 0.5) / scale - 0.5, 0.0, in_size - 1)
+    return _hat_rows(src, in_size, in_size)
+
+
+def resize_by_scale(img_chw: np.ndarray, out_hw, scale: float) -> np.ndarray:
+    """Host bilinear resize of (C, H, W) to ``out_hw`` with
+    ``scale_factor_matrix``'s coordinates."""
+    oh, ow = out_hw
+    mh = scale_factor_matrix(img_chw.shape[1], oh, scale)
+    mw = scale_factor_matrix(img_chw.shape[2], ow, scale)
+    out = np.tensordot(mh, img_chw, axes=(1, 1))          # (oh, C, W)
+    return np.tensordot(out, mw, axes=(2, 1)).transpose(1, 0, 2)
 
 
 def device_resize_matrix(in_size: torch.Tensor, out_size: torch.Tensor,

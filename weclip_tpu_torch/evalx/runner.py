@@ -12,8 +12,10 @@ device per grid size).  Normalization and resizing happen on the device
 on the current one, and pads a ragged last batch with all-ignore labels, so
 the histograms are unaffected.  Dense-CRF post-processing runs either the
 exact lattice on the host or the on-device mean field (refine/crf.py).  In
-a ``torch.distributed`` run each rank evaluates a strided shard and the
-histograms are summed over the ranks (parallel/mesh.py).
+a ``torch.distributed`` run each data rank evaluates a strided shard and
+the histograms are summed over the data group (parallel/mesh.py); the ranks
+of a model group run the same batches, which keeps the collectives of the
+split MLPs in step.
 """
 
 from __future__ import annotations
@@ -215,16 +217,19 @@ class Evaluator:
         strided shard ``range(n)[process_index::process_count]`` and return
         that shard's scores and histograms (the caller sums them).  Without
         them, in a ``torch.distributed`` world of more than one rank, each
-        rank evaluates ``range(n)[rank::world]`` and the histograms are
-        summed by one all-reduce, so every rank returns the global scores;
-        every rank must make this call."""
+        data rank evaluates ``range(n)[data_rank::data]`` of the mesh that
+        ``frozen`` is sharded over (``shard_model``; without one, the world
+        is the data axis) and the histograms are summed over the data group
+        by one all-reduce, so every rank returns the global scores; every
+        rank must make this call."""
         if crf and crf_impl not in ("native", "jax"):
             raise ValueError(f"crf_impl {crf_impl!r}: expected 'native' or 'jax'")
         if (process_index is None) != (process_count is None):
             raise ValueError("pass both process_index and process_count or neither")
         auto_reduce = process_index is None
+        group = None
         if auto_reduce:
-            pi, pc = meshlib.rank_world()
+            pi, pc, group = meshlib.data_shard(frozen)
         else:
             pi, pc = process_index, process_count
         if not 0 <= pi < pc:
@@ -285,7 +290,7 @@ class Evaluator:
         if auto_reduce and pc > 1:
             # the global histograms on every rank, in one collective
             summed = meshlib.psum(torch.stack([h_single, h_msc, h_cam,
-                                               torch.from_numpy(h_crf)]))
+                                               torch.from_numpy(h_crf)]), group)
             h_single, h_msc, h_cam, h_crf = summed.unbind(0)
         h_single, h_msc, h_cam, h_crf = (np.asarray(h) for h in
                                          (h_single, h_msc, h_cam, h_crf))

@@ -22,12 +22,17 @@ import torch.nn.functional as F
 from weclip_tpu_torch.core import precision
 from weclip_tpu_torch.core.config import ClipConfig
 from weclip_tpu_torch.ops.attention import MhaParams, mha_auto, mha_with_weights
-from weclip_tpu_torch.ops.resize import _linear_matrix
+from weclip_tpu_torch.ops.resize import _linear_matrix, upsample_pos_emb
+from weclip_tpu_torch.parallel.mesh import Mesh, enter_model, leave_model
 
 Params = Dict[str, Any]
 
 
 def tree_map(fn, tree):
+    """``fn`` on every tensor of a nested dict/list tree; the mesh a
+    sharded tree carries (parallel/mesh.py::shard_model) stays as it is."""
+    if isinstance(tree, Mesh):
+        return tree
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -57,11 +62,22 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 def mlp_forward(p: Params, x: torch.Tensor, policy: precision.Policy) -> torch.Tensor:
     """fc -> QuickGELU -> proj; products and activations in the compute
-    dtype (fp32 accumulation), biases added in the compute dtype."""
+    dtype (fp32 accumulation), biases added in the compute dtype.
+
+    A block split by ``parallel/mesh.py::shard_model`` (``p["tp"]``, its
+    mesh) holds this rank's hidden slice: its partial projection, in the
+    compute dtype, is summed over the model group, and ``proj_b`` is added
+    once, after the sum.  The decision is the block's own: the text
+    encoder and the heads share this function and are never split."""
     cd = policy.compute_dtype
-    h = torch.matmul(x.to(cd), p["fc_w"].to(cd).t()) + p["fc_b"].to(cd)
+    mesh = p.get("tp")
+    xin = x if mesh is None else enter_model(x, mesh)
+    h = torch.matmul(xin.to(cd), p["fc_w"].to(cd).mT) + p["fc_b"].to(cd)
     h = quick_gelu(h)
-    y = torch.matmul(h, p["proj_w"].to(cd).t()) + p["proj_b"].to(cd)
+    y = torch.matmul(h, p["proj_w"].to(cd).mT)
+    if mesh is not None:
+        y = leave_model(y, mesh)
+    y = y + p["proj_b"].to(cd)
     return y.to(x.dtype)
 
 
@@ -133,6 +149,20 @@ def patchify(img: torch.Tensor, conv_w: torch.Tensor, patch: int,
     x = x.permute(0, 2, 4, 1, 3, 5).reshape(b, gh * gw, c * patch * patch)
     wmat = conv_w.reshape(conv_w.shape[0], -1)
     return precision.matmul_f32(x, wmat.t(), policy.compute_dtype)
+
+
+def build_pos_emb(params: Params, gh: int, gw: int, pad_gh: Optional[int] = None,
+                  pad_gw: Optional[int] = None) -> torch.Tensor:
+    """The positional embedding resampled to a (gh, gw) grid, (1 + gh*gw,
+    D); with ``pad_gh``/``pad_gw`` placed on that padded grid, zeros
+    outside, (1 + pad_gh*pad_gw, D)."""
+    pe = upsample_pos_emb(params["positional_embedding"], gh, gw)
+    if pad_gh is None:
+        return pe
+    d = pe.shape[-1]
+    grid = pe.new_zeros((pad_gh, pad_gw, d))
+    grid[:gh, :gw] = pe[1:].reshape(gh, gw, d)
+    return torch.cat([pe[:1], grid.reshape(pad_gh * pad_gw, d)], dim=0)
 
 
 def pos_emb_host(pos_emb: np.ndarray, gh: int, gw: int,

@@ -150,3 +150,16 @@ def decoder_forward(p: Params, fts: torch.Tensor, n_heads: int = 8,
         b, pp = fts.shape[:2]
         return seg, torch.zeros((0, b, pp, pp), device=fts.device, dtype=torch.float32)
     return seg, torch.stack(attns)
+
+
+def head_forward(p: Params, layer_tokens: torch.Tensor,
+                 gen: Optional[torch.Generator] = None,
+                 valid_p: Optional[torch.Tensor] = None,
+                 policy: precision.Policy = precision.DEFAULT,
+                 allow_kernel: bool = False) -> HeadOutputs:
+    """The fuse head, then the decoder on its output (``fuse_forward``,
+    ``decoder_forward``)."""
+    fused = fuse_forward(p["fuse"], layer_tokens, gen, policy=policy)
+    seg, dec_attn = decoder_forward(p["decoder"], fused, valid_p=valid_p, policy=policy,
+                                    allow_kernel=allow_kernel)
+    return HeadOutputs(seg, fused, dec_attn)

@@ -1,9 +1,10 @@
-"""Torch-parity bilinear resampling as two 1-D interpolation matrices
-(port of weclip_tpu/ops/resize.py).
+"""Torch-parity resampling (port of weclip_tpu/ops/resize.py): bilinear as
+two 1-D interpolation matrices, nearest as two index gathers.
 
 ``align_corners=False`` serves the positional-embedding and CAM/logit
 upsampling; ``align_corners=True`` the PAR image resampling.  The products
-run in full fp32 (TF32 off, see core.precision.strict_matmul)."""
+run in full fp32 (TF32 off, see core.precision.strict_matmul).  Nearest is
+torch's ``F.interpolate(mode="nearest")`` (source floor(dst * in / out))."""
 
 from __future__ import annotations
 
@@ -32,6 +33,21 @@ def _linear_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarr
     m[np.arange(out_size), lo] += w_lo
     m[np.arange(out_size), hi] += w_hi
     return m.astype(np.float32)
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Torch's ``nearest`` source index of each output cell."""
+    dst = np.arange(out_size, dtype=np.float64)
+    src = np.floor(dst * (in_size / out_size)).astype(np.int64)
+    return np.minimum(src, in_size - 1)
+
+
+def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Nearest resize over the last two axes (``F.interpolate(mode=
+    "nearest")`` semantics), any dtype."""
+    ih = torch.from_numpy(_nearest_index(x.shape[-2], out_h)).to(x.device)
+    iw = torch.from_numpy(_nearest_index(x.shape[-1], out_w)).to(x.device)
+    return x.index_select(-2, ih).index_select(-1, iw)
 
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,

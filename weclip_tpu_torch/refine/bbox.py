@@ -6,11 +6,13 @@ strict ``>`` against ``int(thr * max)``), 8-connected components are found
 by iterated 3x3 min-label propagation, and the union of the components'
 bounding boxes keeps the reference's ``min(x1, w-1)`` clipping (the last
 valid row/column is excluded for components that touch it).  Everything
-is batched over leading axes on the padded grid.
+is batched over leading axes on the padded grid.  ``box_iou`` is a host
+numpy utility.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -85,3 +87,21 @@ def scoremap_box_mask(cam: torch.Tensor, valid: torch.Tensor,
     # column ranges both hold it (exact counts in fp32)
     cover = torch.matmul(in_r.float().transpose(1, 2), in_c.float())
     return (cover > 0).float()
+
+
+def box_iou(box_a, box_b):
+    """Pairwise IoU (na, nb) float64 of x0y0x1y1 integer boxes, a host
+    numpy utility: inclusive-pixel areas (the +1 convention), pairs whose
+    union is not positive scored 0."""
+    a = np.asarray(box_a)[:, None, :].astype(np.float64)   # (na, 1, 4)
+    b = np.asarray(box_b)[None, :, :].astype(np.float64)   # (1, nb, 4)
+    ix = np.maximum(0, np.minimum(a[..., 2], b[..., 2])
+                    - np.maximum(a[..., 0], b[..., 0]) + 1)
+    iy = np.maximum(0, np.minimum(a[..., 3], b[..., 3])
+                    - np.maximum(a[..., 1], b[..., 1]) + 1)
+    inter = ix * iy
+    area_a = (a[..., 2] - a[..., 0] + 1) * (a[..., 3] - a[..., 1] + 1)
+    area_b = (b[..., 2] - b[..., 0] + 1) * (b[..., 3] - b[..., 1] + 1)
+    denom = area_a + area_b - inter
+    bad = denom <= 0
+    return np.where(bad, 0.0, inter / np.where(bad, 1.0, denom))

@@ -10,10 +10,10 @@ weclip_tpu/train/losses.py).
   pairwise equality, the radius neighbourhood and the ignore rows/columns.
 
 The losses normalize by counts over the whole batch.  Under data
-parallelism each rank holds a slice of it: ``reduce`` (parallel/mesh.py::
-psum) sums those counts over the ranks, so each rank's loss is its share of
-the global-batch loss and the shares sum to it, as the JAX package's GSPMD
-computes it.
+parallelism each data rank holds a slice of it: ``reduce`` (parallel/mesh.py::
+psum over the mesh's data group) sums those counts over the data ranks, so
+each rank's loss is its share of the global-batch loss and the shares sum
+to it, as the JAX package's GSPMD computes it.
 """
 
 from __future__ import annotations

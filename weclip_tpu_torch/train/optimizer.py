@@ -50,6 +50,22 @@ def sgd_poly_warmup_multiplier(cfg: OptimizerConfig, max_iters: int
     return mult
 
 
+def poly_warmup_schedule(cfg: OptimizerConfig, max_iters: int, base_lr: float
+                         ) -> Callable[[int], float]:
+    """The AdamW learning rate at step t: ``base_lr`` times
+    ``poly_warmup_multiplier``."""
+    mult = poly_warmup_multiplier(cfg, max_iters)
+    return lambda step: base_lr * mult(step)
+
+
+def sgd_poly_warmup_schedule(cfg: OptimizerConfig, max_iters: int, base_lr: float
+                             ) -> Callable[[int], float]:
+    """The SGD learning rate at step t: ``base_lr`` times
+    ``sgd_poly_warmup_multiplier``."""
+    mult = sgd_poly_warmup_multiplier(cfg, max_iters)
+    return lambda step: base_lr * mult(step)
+
+
 def make_optimizer(params: Iterable[torch.Tensor], cfg: OptimizerConfig,
                    max_iters: int
                    ) -> Tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:

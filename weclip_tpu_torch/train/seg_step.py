@@ -1,13 +1,15 @@
 """The fully supervised variant ("seg", port of weclip_tpu/train/seg_step.py):
 frozen CLIP features -> fuse -> decoder, trained with masked cross-entropy
 against ground-truth masks.  No GradCAM, no PAR, no affinity loss.  Over
-a data-parallel ``mesh`` it reduces as train/step.py does: the loss is this
-rank's share of the global-batch loss, the gradients are summed over the
-ranks, and the metrics are global.
+a ``mesh`` it reduces as train/step.py does: the loss is this rank's share
+of the global-batch loss, the gradients are summed over the data group,
+and the metrics are global; the ranks of a model group hold the same
+gradients and reduce none.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -37,23 +39,26 @@ def make_seg_train_step(cfg: Config, policy: precision.Policy = precision.DEFAUL
     SegMetrics)``: ``label`` (B, H, W) ground truth at the crop size, pixels
     at ``ignore_index`` left out; ``rng`` seeds the step's dropout generator
     (None: dropout off).  Updates the state in place.  ``mesh``:
-    data-parallel ranks, ``batch`` and ``label`` this rank's slice."""
+    the ranks, ``batch`` and ``label`` this rank's slice, ``frozen``
+    sharded over the model axis where the mesh has one."""
     crop = cfg.dataset.crop_size
     g = crop // cfg.clip.patch_size
     dp = meshlib.dp_only(mesh)
+    reduce = functools.partial(meshlib.psum, group=mesh.data_group) if dp else None
 
     def loss_fn(params, frozen, batch: weclip.Batch, label, gen):
         b = batch.img.shape[0]
         out = weclip.forward_train(params, frozen, batch, cfg, False, gen, policy,
                                    with_pseudo=False,
-                                   batch_rows=(mesh.rank * b, mesh.data * b) if dp else None)
+                                   batch_rows=(mesh.data_rank * b, mesh.data * b)
+                                   if dp else None)
         seg_hw = resize_bilinear(out.seg.reshape(b, g, g, -1).permute(0, 3, 1, 2),
                                  crop, crop)
         valid = label != cfg.dataset.ignore_index
-        loss = _masked_ce(seg_hw, label, valid, meshlib.psum if dp else None)
+        loss = _masked_ce(seg_hw, label, valid, reduce)
         hits, n = ((seg_hw.argmax(dim=1) == label) & valid).sum(), valid.sum()
         if dp:
-            loss_sum, hits, n = meshlib.psum(torch.stack([
+            loss_sum, hits, n = reduce(torch.stack([
                 loss.detach(), hits.float(), n.float()])).unbind(0)
             return loss, SegMetrics(loss_sum, hits / n.clamp_min(1))
         return loss, SegMetrics(loss.detach(), (hits / n.clamp_min(1)).float())
@@ -66,7 +71,7 @@ def make_seg_train_step(cfg: Config, policy: precision.Policy = precision.DEFAUL
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
         if dp:
-            all_reduce_grads(param_leaves(state.params))
+            all_reduce_grads(param_leaves(state.params), mesh.data_group)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1

@@ -8,18 +8,27 @@ carries gradients: the frozen ViT forward runs without them, and GradCAM's
 own backward (inside the pseudo-label chain) takes gradients of block 11's
 input alone, so its graph never joins the loss's.
 
-Data parallel (``mesh`` of more than one rank, parallel/mesh.py): each rank
-runs its slice of the global batch.  The losses' counts are summed over the
-ranks first (train/losses.py), so each rank's loss is its share of the
-global-batch loss; the gradients are then summed, and every rank takes the
-update one process would take over the whole batch, as the JAX package's
-GSPMD step does.  The dropout masks are drawn for the global batch, each
-rank taking its rows; the metrics are global.
+Data parallel (``mesh`` of more than one data rank, parallel/mesh.py):
+each data rank runs its slice of the global batch.  The losses' counts are
+summed over the data group first (train/losses.py), so each rank's loss is
+its share of the global-batch loss; the gradients are then summed over the
+data group, and every rank takes the update one process would take over
+the whole batch, as the JAX package's GSPMD step does.  The dropout masks
+are drawn for the global batch, each data rank taking its rows; the
+metrics are global.
+
+Tensor parallel (``mesh.model`` > 1): the ranks of a model group run the
+same rows against their shards of the frozen MLPs (``shard_model``), whose
+outputs are summed over the group inside the forward.  Every activation
+after that sum is replicated, so the ranks of a model group hold identical
+trainable gradients and need no reduction of them: a mesh of data 1 and
+model 2 reduces no gradient at all.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -119,6 +128,7 @@ def make_loss_fn(cfg: Config, policy: precision.Policy = precision.DEFAULT,
     data-parallel ``mesh``, ``batch`` is this rank's slice of the global
     batch (every rank the same size) and the loss its share."""
     dp = meshlib.dp_only(mesh)
+    reduce = functools.partial(meshlib.psum, group=mesh.data_group) if dp else None
     g = cfg.dataset.crop_size // cfg.clip.patch_size
     rmask_np = losses.radius_mask(g, g, cfg.train.radius)
     rmasks: Dict[Any, torch.Tensor] = {}
@@ -127,7 +137,7 @@ def make_loss_fn(cfg: Config, policy: precision.Policy = precision.DEFAULT,
                 cls_idx, cls_active, pseudo: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, StepMetrics]:
         b = batch.img.shape[0]
-        rows = (mesh.rank * b, mesh.data * b) if dp else None
+        rows = (mesh.data_rank * b, mesh.data * b) if dp else None
         out = weclip.forward_train(params, frozen, batch, cfg, require_seg_trans,
                                    gen, policy, cls_idx=cls_idx,
                                    cls_active=cls_active, batch_rows=rows)
@@ -135,19 +145,18 @@ def make_loss_fn(cfg: Config, policy: precision.Policy = precision.DEFAULT,
         if dev not in rmasks:
             rmasks[dev] = torch.from_numpy(rmask_np).to(dev)
         labels = out.cam_labels.detach() if pseudo is None else pseudo
-        return train_losses(cfg, out, labels, rmasks[dev],
-                            meshlib.psum if dp else None)
+        return train_losses(cfg, out, labels, rmasks[dev], reduce)
 
     return loss_fn
 
 
-def all_reduce_grads(leaves: List[torch.Tensor]) -> None:
-    """Sum the gradients of ``leaves`` over the ranks, in place, as one
-    flat buffer (one collective)."""
+def all_reduce_grads(leaves: List[torch.Tensor], group=None) -> None:
+    """Sum the gradients of ``leaves`` over the ranks of ``group`` (default:
+    every rank), in place, as one flat buffer (one collective)."""
     grads = [t.grad for t in leaves if t.grad is not None]
     if not grads:
         return
-    flat = meshlib.psum(torch.cat([g.reshape(-1) for g in grads]))
+    flat = meshlib.psum(torch.cat([g.reshape(-1) for g in grads]), group)
     for g, v in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(v.view_as(g))
 
@@ -163,8 +172,10 @@ def make_train_step(cfg: Config, policy: precision.Policy = precision.DEFAULT,
     training (validation) that advance the seg-trans gate, as the reference
     does.  ``pseudo``: labels (B, H, W) to train against in place of the
     forward's own, so that steps on two devices can be held to the same
-    labels.  Metrics are detached device scalars.  ``mesh``: data-parallel
-    ranks (see the module docstring); ``batch`` is this rank's slice."""
+    labels.  Metrics are detached device scalars.  ``mesh``: the ranks (see
+    the module docstring); ``batch`` is this rank's slice, and ``frozen``
+    is sharded over the mesh's model axis where it has one
+    (``meshlib.shard_model``)."""
     loss_fn = make_loss_fn(cfg, policy, mesh)
     dp = meshlib.dp_only(mesh)
 
@@ -181,7 +192,7 @@ def make_train_step(cfg: Config, policy: precision.Policy = precision.DEFAULT,
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
         if dp:
-            all_reduce_grads(param_leaves(state.params))
+            all_reduce_grads(param_leaves(state.params), mesh.data_group)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1

@@ -21,13 +21,15 @@ or random weights where there is none.  Each logged window also goes to
 ``profile_steps`` traces a range of steps with ``torch.profiler`` into
 ``work_dir.dir/profile``.
 
-Under ``torchrun`` (``mesh.data_parallel`` ranks, parallel/mesh.py) every
-rank reads its own shard of each epoch at ``samples_per_gpu`` images, so
-the global batch is ``samples_per_gpu`` times the ranks, and the step
-reduces the losses' counts and the gradients over the ranks
-(train/step.py).  Rank 0 alone writes checkpoints, scalars, logs and
+Under ``torchrun`` (``mesh.data_parallel`` x ``mesh.model_parallel``
+ranks, parallel/mesh.py) every data rank reads its own shard of each epoch
+at ``samples_per_gpu`` images, so the global batch is ``samples_per_gpu``
+times the data width, and the step reduces the losses' counts and the
+gradients over the data group (train/step.py).  The ranks of a model group
+read the same shard and hold their slices of the frozen MLPs
+(``shard_model``).  Rank 0 alone writes checkpoints, scalars, logs and
 profiles, and the ranks meet at a barrier after each checkpoint; every rank
-resumes from it, and validation sums its histograms over the ranks.
+resumes from it, and validation sums its histograms over the data group.
 """
 
 from __future__ import annotations
@@ -153,6 +155,7 @@ def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cu
         precision.strict_matmul()
     if frozen is None:
         frozen, _, cfg = build_frozen(cfg, cfg.train.seed, device=device)
+    frozen = meshlib.shard_model(mesh, frozen)
     if dataset is None:
         dataset = build_dataset(cfg)
     ckpt_dir = os.path.join(cfg.work_dir.dir, cfg.work_dir.ckpt_dir)
@@ -175,10 +178,10 @@ def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cu
     bsz = cfg.train.samples_per_gpu
     total = max_steps or cfg.train.max_iters
     loader = PrefetchLoader(dataset, bsz, seed=cfg.train.seed, start=state.step,
-                            process_index=mesh.rank, process_count=mesh.data)
+                            process_index=mesh.data_rank, process_count=mesh.data)
     if lead:
-        log.info("global batch %d (%d per rank x %d ranks)", bsz * mesh.data, bsz,
-                 mesh.data)
+        log.info("global batch %d (%d per rank x %d data ranks; model width %d)",
+                 bsz * mesh.data, bsz, mesh.data, mesh.model)
     from weclip_tpu_torch.utils.tb import ScalarWriter
     writer = (ScalarWriter(os.path.join(cfg.work_dir.dir, cfg.work_dir.tb_logger_dir))
               if lead else None)
