@@ -19,7 +19,12 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
    and spills from ``cuobjdump``), timed beside its plain
    version, a PyTorch library call where one computes the same function
    (SDPA at every K2, K3, K3-rect and K6 shape), and the least time the
-   card could take (``bound_ms``);
+   card could take (``bound_ms``); then every attention kernel at head
+   widths 8, 20, 48, 80 and 128 in bf16 and fp32, forward and backward, the
+   fp32 K1 at L 2048 and 4096, and K4/K5 at dilation sets past the shipped
+   one ((1, 2, 4, 8, 12, 24, 32, 48), (5,), (1, 2, 64)) on a 20 x 28 image
+   and the eval canvas, each checked, timed and bounded the same way
+   (``check_widths``);
 4. ``WeCLIPPipeline(device="cuda")`` at full ViT-B/16 width with seeded
    random weights: ``pseudo_label_batch`` and ``segment_batch`` (msc +
    flip) on 8 synthetic VOC-sized images; then one image at the fp32
@@ -50,7 +55,12 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
    predictions agreeing on at least 99% of the labelled pixels;
 11. two ``seg_step`` steps (crop 320, batch 4): finite losses, every
    parameter moved; one fp32 step at batch 1 on the card and the CPU,
-   losses within 1e-4;
+   losses within 1e-4; then the CoMer functional check
+   (``weclip_tpu_torch/tools/comer_benchmark.py``, 1 seed, 30 steps an
+   arm) on the card: finite scores, K6 and K3-rect launched at head width
+   128, each of those calls within 2e-5 of its plain version on the same
+   arguments, the CoMer arm's first 4 steps' losses within 1e-4
+   (relative) of the CPU's, two runs of 30 steps equal;
 12. a seeded random ViT-B/16 checkpoint in OpenAI's key layout (fp16) and a
    synthetic merges file: ``load_clip`` infers ``Config().clip``'s widths,
    ``build_frozen`` on the card and the CPU, fp32 text features within
@@ -419,22 +429,13 @@ PAR_CHECK_SHAPES = [("bucket 20", 2, 21, 128, 160), ("clamp", 1, 21, 20, 28)]
 
 def kernel_resources(name: str) -> dict:
     """Registers, stack and local memory (spills) of each kernel in the
-    built library ``name``, read by ``cuobjdump -res-usage``."""
+    built library ``name``, read by ``cuobjdump -res-usage``
+    (``weclip_tpu_torch/tools/kernel_resources.py``)."""
     from weclip_tpu_torch import kernels
-    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
-    text = subprocess.run([tool, "-res-usage", str(kernels._lib_path(name))],
-                          check=True, capture_output=True, text=True, timeout=120).stdout
-    out, fn = {}, None
-    for line in text.splitlines():
-        line = line.strip()
-        if line.startswith("Function "):
-            fn = line[len("Function "):].rstrip(":")
-        elif fn and line.startswith("REG:"):
-            fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
-            out[fn] = {k: int(fields[k]) for k in ("REG", "STACK", "LOCAL")
-                       if fields.get(k, "").isdigit()}
-            print(f"[resources] {name} {fn}: {out[fn]}", flush=True)
-            fn = None
+    from weclip_tpu_torch.tools.kernel_resources import resources
+    out = resources(kernels._lib_path(name))
+    for fn, res in out.items():
+        print(f"[resources] {name} {fn}: {res}", flush=True)
     return out
 
 
@@ -750,6 +751,287 @@ def check_kernels(reps: int = 10):
            resources={k: v for k, v in res.items() if "propagate" in k})
     torch.cuda.empty_cache()
     return records
+
+
+# head widths past the compiled instances' own (16, 32, 64, 128): each runs
+# the next instance up with zero lanes; 128 is CTI's at the tiny config
+WIDTHS = [8, 20, 48, 80, 128]
+# (B, H, L) of the width checks: a ViT-block-like square shape (K1, K2, K3)
+# and CTI's training injection, (B, H, Lq) x Lk (K6, K3-rect)
+WIDTH_SQUARE = (4, 8, 1025)
+WIDTH_RECT = (4, 2, 2100, 400)
+# the fp32 K1 past the length its whole-row design took
+K1_F32_LENGTHS = [(2, 12, 2048, 64), (1, 12, 4096, 64)]
+# PAR's dilation sets past the packed form (more than 6, or above 24), on
+# a 20 x 28 image (checked) and at the eval canvas (timed)
+PAR_DILATION_SETS = [(1, 2, 4, 8, 12, 24, 32, 48), (5,), (1, 2, 64)]
+
+
+def add_checks(records, name, checks, **fields):
+    """Hold ``checks`` ((what, max_abs_err, tol)) of an already recorded
+    kernel, each to its own tolerance, and fold them and ``fields`` into
+    its record; fails after printing them all."""
+    rec = next(r for r in records if r["name"] == name)
+    bad = []
+    for what, err, tol in checks:
+        ok = err <= tol
+        if not ok:
+            bad.append((what, err, tol))
+        print(f"[kernel] {name}: {what}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+    if bad:
+        raise AssertionError(f"{name}: {bad}")
+    rec["checks"] += [{"what": w, "max_abs_err": e, "tol": t} for w, e, t in checks]
+    rec["max_abs_err"] = max(c["max_abs_err"] for c in rec["checks"])
+    for key, value in fields.items():
+        rec.setdefault(key, {}).update(value)
+
+
+def sdpa_ms(q, k, v, km, reps: int, scale=None) -> float:
+    """PyTorch's SDPA (its own choice of backend) with the same boolean key
+    mask on the same inputs."""
+    import torch.nn.functional as F
+    mask = km.bool()[:, None, None, :]
+    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                          scale=scale), reps)
+
+
+def sdpa_any_bwd_ms(qs, k, v, do, km, reps: int) -> float:
+    """SDPA's backward (its own choice of backend) on the same pre-scaled
+    inputs in their own dtype, its forward outside the timed region."""
+    import torch
+    import torch.nn.functional as F
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (qs, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=km.bool()[:, None, None, :],
+                                         scale=1.0)
+    do_l = do.to(out.dtype)
+    return cuda_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do_l,
+                                               retain_graph=True), reps)
+
+
+def k4_checks(what, aff, imgs, cfg):
+    """K4's output against the plain version's at 2e-5 where the plain
+    version is within 1e-5 of a float64 evaluation; and always the kernel's
+    distance from that evaluation at most the larger of 2e-5 and the plain
+    version's own.  With 8 neighbours a pixel's one-pass variance can
+    cancel, and the two fp32 versions round it differently (the kernel's
+    sum of squares is fused, the plain one's is not): there the plain
+    version is no closer to the true value than the kernel."""
+    from weclip_tpu_torch.refine import par as par_plain
+    plain = par_plain.par_affinity(imgs, cfg)
+    exact = par_plain.par_affinity(imgs.double(), cfg)
+    dist = {"kernel": float((aff.double() - exact).abs().max()),
+            "plain": float((plain.double() - exact).abs().max())}
+    print(f"[kernel] par_affinity {what}: distance from float64: kernel "
+          f"{dist['kernel']:.3e}, plain {dist['plain']:.3e}", flush=True)
+    out = [(f"{what}: distance from float64", dist["kernel"], max(2e-5, dist["plain"]))]
+    if dist["plain"] <= 1e-5:
+        out.append((what, max_err(aff, plain), 2e-5))
+    return out
+
+
+def check_widths(records, reps: int = 5):
+    """Phase 3, head widths, lengths and dilation sets past the main
+    path's: every attention kernel at Dh 8, 20, 48, 80 and 128 in bf16 and
+    fp32, forward and backward, each output to its own tolerance; the fp32
+    K1 at L 2048 and 4096; K4 and K5 at PAR_DILATION_SETS, and K5's far
+    form at the shipped set beside its packed form.  Each shape
+    timed beside its plain version, SDPA where it computes the same
+    function, and its bound; folded into the kernels' records.  Returns the
+    attention libraries' registers and spills (``cuobjdump``)."""
+    import torch
+
+    from weclip_tpu_torch.core import precision
+    from weclip_tpu_torch.core.config import ParConfig
+    from weclip_tpu_torch.ops import attention_kernels as ak
+    from weclip_tpu_torch.refine import par as par_plain
+    from weclip_tpu_torch.refine import par_kernels as pk
+
+    precision.strict_matmul()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf = torch.bfloat16
+    times = {n: {} for n in ("attention_fwd_export", "attention_fwd", "attention_bwd",
+                             "attention_bwd_rect", "cross_attention", "par_affinity",
+                             "par_propagate")}
+    checks = {n: [] for n in times}
+
+    def timing(name, key, ms, plain, bound, lib):
+        times[name][key] = {"ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+                            "bound_by": bound[1], "library_ms": lib}
+        print(f"[kernel] {name} {key}: {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}), library "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}", flush=True)
+
+    def grad_checks(name, what, got, ref, dtype):
+        rel = 2.0 ** -8 if dtype == bf else 2e-5
+        out = []
+        for g_name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            sc = float(r.abs().max())
+            out.append((f"{what} {g_name} (largest {sc:.3e})", max_err(a, r), rel * sc))
+            if dtype == bf:   # the mean, where a misplaced term shows
+                out.append((f"{what} {g_name} mean", float((a - r).abs().mean()), 1e-5 * sc))
+        return out
+
+    b, h, l = WIDTH_SQUARE
+    km = token_mask(b, 512)
+    rb, rh, lq, lk = WIDTH_RECT
+    km_rect = torch.ones((rb, lk), device="cuda")
+    km_rect[1, lk // 2:] = 0.0
+    for dh in WIDTHS:
+        for dtype in (bf, torch.float32):
+            sz, kind, tag = (2, "bf16", "bf16") if dtype == bf else (4, "fp32", "fp32")
+            key = f"Dh {dh} {tag}"
+            q, k, v = qkv(b, h, l, dh, gen, dtype)
+            # K1 and K2: output (and map) against the plain version
+            for export, name in ((True, "attention_fwd_export"), (False, "attention_fwd")):
+                out, amap = ak.attention_core(q, k, v, km, export)
+                ref, ref_map = ak.attention_core_plain(q, k, v, km, export)
+                torch.cuda.synchronize()
+                checks[name].append(output_check(f"out {[b, h, l, dh]} {tag}", out, ref))
+                if export:
+                    checks[name].append((f"map {[b, h, l, dh]} {tag}", max_err(amap, ref_map),
+                                         2e-5))
+                del out, amap, ref, ref_map
+                n_bytes = 4 * b * h * l * dh * sz + b * l * 4 + (b * l * l * 4 if export else 0)
+                timing(name, key, cuda_ms(lambda: ak.attention_core(q, k, v, km, export), reps),
+                       cuda_ms(lambda: ak.attention_core_plain(q, k, v, km, export), reps),
+                       bound_ms(n_bytes, 4 * b * h * l * l * dh, kind),
+                       None if export else sdpa_ms(q, k, v, km, reps))
+            # K3: the backward at the same shape
+            do = torch.randn((b, h, l, dh), generator=gen, device="cuda")
+            qs = q.float() * dh ** -0.5
+            got = ak.attention_bwd(qs, k, v, do, km, dtype)
+            ref = ak.attention_bwd_plain(qs, k, v, do, km, dtype)
+            torch.cuda.synchronize()
+            checks["attention_bwd"] += grad_checks("attention_bwd", f"{[b, h, l, dh]} {tag}",
+                                                   got, ref, dtype)
+            del got, ref
+            n_bytes = b * h * l * dh * (4 * sz + 3 * 4) + b * l * 4
+            qd = qs.to(dtype)
+            timing("attention_bwd", key,
+                   cuda_ms(lambda: ak.attention_bwd(qd, k, v, do, km, dtype), reps),
+                   cuda_ms(lambda: ak.attention_bwd_plain(qs, k, v, do, km, dtype), reps),
+                   bound_ms(n_bytes, 10 * b * h * l * l * dh, kind),
+                   sdpa_any_bwd_ms(qd, k, v, do, km, reps))
+            del q, k, v, do, qs, qd
+            # K6 and K3-rect at CTI's training injection
+            q = (torch.randn((rb, rh, lq, dh), generator=gen, device="cuda")
+                 * dh ** -0.5).to(dtype)
+            k, v = (torch.randn((rb, rh, lk, dh), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            out = ak.cross_attention_core(q, k, v, km_rect)
+            ref = ak.cross_attention_core_plain(q, k, v, km_rect)
+            torch.cuda.synchronize()
+            tol = bf16_ulp(float(ref.abs().max())) if dtype == bf else 2e-5
+            checks["cross_attention"].append(
+                (f"out {[rb, rh, lq, dh]} x {lk} {tag}", max_err(out, ref), tol))
+            del out, ref
+            n_bytes = rb * rh * (lq * dh * sz + 2 * lk * dh * sz + lq * dh * 4) + rb * lk * 4
+            timing("cross_attention", key,
+                   cuda_ms(lambda: ak.cross_attention_core(q, k, v, km_rect), reps),
+                   cuda_ms(lambda: ak.cross_attention_core_plain(q, k, v, km_rect), reps),
+                   bound_ms(n_bytes, 4 * rb * rh * lq * lk * dh, kind),
+                   sdpa_ms(q, k, v, km_rect, reps, scale=1.0))
+            do = torch.randn((rb, rh, lq, dh), generator=gen, device="cuda")
+            got = ak.attention_bwd(q.float(), k, v, do, km_rect, dtype)
+            ref = ak.attention_bwd_plain(q.float(), k, v, do, km_rect, dtype)
+            torch.cuda.synchronize()
+            checks["attention_bwd_rect"] += grad_checks(
+                "attention_bwd_rect", f"{[rb, rh, lq, dh]} x {lk} {tag}", got, ref, dtype)
+            del got, ref
+            n_bytes = rb * rh * (lq * dh * (sz + 4 + 4) + 2 * lk * dh * (sz + 4)) + rb * lk * 4
+            timing("attention_bwd_rect", key,
+                   cuda_ms(lambda: ak.attention_bwd(q, k, v, do, km_rect, dtype), reps),
+                   cuda_ms(lambda: ak.attention_bwd_plain(q, k, v, do, km_rect, dtype), reps),
+                   bound_ms(n_bytes, 10 * rb * rh * lq * lk * dh, kind),
+                   sdpa_any_bwd_ms(q, k, v, do, km_rect, reps))
+            del q, k, v, do
+            torch.cuda.empty_cache()
+
+    # the fp32 K1 at lengths its whole-row design refused (one image with
+    # masked keys)
+    for b_, h_, l_, dh in K1_F32_LENGTHS:
+        q, k, v = qkv(b_, h_, l_, dh, gen, torch.float32)
+        km_l = torch.ones((b_, l_), device="cuda")
+        km_l[-1, l_ // 3:] = 0.0
+        out, amap = ak.attention_core(q, k, v, km_l, True)
+        ref, ref_map = ak.attention_core_plain(q, k, v, km_l, True)
+        torch.cuda.synchronize()
+        checks["attention_fwd_export"] += [
+            (f"out {[b_, h_, l_, dh]} fp32", max_err(out, ref), 2e-5),
+            (f"map {[b_, h_, l_, dh]} fp32", max_err(amap, ref_map), 2e-5)]
+        del out, amap, ref, ref_map
+        n_bytes = 4 * b_ * h_ * l_ * dh * 4 + b_ * l_ * 4 + b_ * l_ * l_ * 4
+        timing("attention_fwd_export", f"L {l_} fp32",
+               cuda_ms(lambda: ak.attention_core(q, k, v, km_l, True), 2),
+               cuda_ms(lambda: ak.attention_core_plain(q, k, v, km_l, True), 2),
+               bound_ms(n_bytes, 4 * b_ * h_ * l_ * l_ * dh, "fp32"), None)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # K4 and K5 at dilation sets past the packed form: checked on a 20 x 28
+    # image (dilations past the image) and at the eval canvas, timed there
+    for dil in PAR_DILATION_SETS:
+        cfg = ParConfig(dilations=dil)
+        n = 8 * len(dil)
+        for what, b_, c, hh, ww in (("20 x 28", 1, 5, 20, 28), ("eval", 8, 5, 512, 512)):
+            imgs = torch.randn((b_, 3, hh, ww), generator=gen, device="cuda")
+            masks = torch.rand((b_, c, hh, ww), generator=gen, device="cuda")
+            aff = pk.par_affinity(imgs, cfg)
+            checks["par_affinity"] += k4_checks(f"{dil} {what} aff {[b_, n, hh, ww]}", aff,
+                                                imgs, cfg)
+            got = pk.par_propagate(masks, aff, cfg)
+            checks["par_propagate"].append(
+                (f"{dil} {what} masks {[b_, c, hh, ww]}, {cfg.num_iter} iterations",
+                 max_err(got, par_plain.par_propagate(masks, aff, cfg)), 2e-5))
+            if what == "eval":
+                key = f"{dil} {[b_, c, hh, ww]}"
+                timing("par_affinity", key, cuda_ms(lambda: pk.par_affinity(imgs, cfg), reps),
+                       cuda_ms(lambda: par_plain.par_affinity(imgs, cfg), 2),
+                       bound_ms(b_ * 3 * hh * ww * 4 + b_ * n * hh * ww * 4,
+                                31 * n * b_ * hh * ww, "fp32"), None)
+                timing("par_propagate", key,
+                       cuda_ms(lambda: pk.par_propagate(masks, aff, cfg), 2),
+                       cuda_ms(lambda: par_plain.par_propagate(masks, aff, cfg), 2),
+                       bound_ms(b_ * n * hh * ww * 4 + 2 * b_ * c * hh * ww * 4,
+                                cfg.num_iter * 2 * n * b_ * c * hh * ww, "fp32"), None)
+            del imgs, masks, aff, got
+        torch.cuda.empty_cache()
+
+    # K5's far form at the shipped set, beside the packed form that set
+    # runs, at the eval canvas and the training crop: each form timed twice,
+    # in the order packed, far, far, packed
+    cfg = ParConfig()
+    n = 8 * len(cfg.dilations)
+    for what, b_, c, hh, ww in (("eval", 8, 5, 512, 512), ("train", 4, 5, 320, 320)):
+        imgs = torch.randn((b_, 3, hh, ww), generator=gen, device="cuda")
+        masks = torch.rand((b_, c, hh, ww), generator=gen, device="cuda")
+        aff = pk.par_affinity(imgs, cfg)
+        checks["par_propagate"].append(
+            (f"far form {cfg.dilations} {what} masks {[b_, c, hh, ww]}, "
+             f"{cfg.num_iter} iterations", max_err(pk.par_propagate(masks, aff, cfg, far=True),
+                                                   par_plain.par_propagate(masks, aff, cfg)),
+             2e-5))
+        ms = {}
+        for far in (False, True, True, False):
+            ms.setdefault(far, []).append(
+                cuda_ms(lambda: pk.par_propagate(masks, aff, cfg, far=far), 2))
+        plain_ms = cuda_ms(lambda: par_plain.par_propagate(masks, aff, cfg), 2)
+        bound = bound_ms(b_ * n * hh * ww * 4 + 2 * b_ * c * hh * ww * 4,
+                         cfg.num_iter * 2 * n * b_ * c * hh * ww, "fp32")
+        for far, tag in ((False, "packed"), (True, "far")):
+            timing("par_propagate", f"{tag} form {cfg.dilations} {[b_, c, hh, ww]}",
+                   sum(ms[far]) / 2, plain_ms, bound, None)
+        print(f"[kernel] par_propagate {cfg.dilations} {what}: far / packed form "
+              f"{sum(ms[True]) / sum(ms[False]):.4f} (packed {ms[False]}, far {ms[True]} ms)",
+              flush=True)
+        del imgs, masks, aff
+        torch.cuda.empty_cache()
+    for name in times:
+        add_checks(records, name, checks[name], extra_shapes=times[name])
+    # every attention instance's registers and spills (PAR's: check_kernels)
+    return {lib: kernel_resources(lib) for lib in ("flash_attention", "hopper_attention",
+                                                   "cross_attention", "attention")}
 
 
 def cti_masks(b: int, canvas: int):
@@ -1581,6 +1863,141 @@ def run_seg_steps():
     torch.cuda.empty_cache()
     return launches, {"losses": losses, "fp32_loss_cpu": fp32["cpu"],
                       "fp32_loss_card": fp32["card"], "fp32_loss_diff": diff}
+
+
+def run_comer_benchmark(steps: int = 30, lockstep: int = 4, repeat: int = 30):
+    """The CoMer functional check (``weclip_tpu_torch/tools/comer_benchmark``)
+    on the card: 1 seed, ``steps`` steps an arm, through its ``main``.  The
+    wrappers of K6 and K3/K3-rect are watched on the way: the CoMer arm
+    must launch K6 and K3-rect at Dh 128 (CTI at the tiny config: 256 / 2
+    heads), and every such call on the card is held against its plain
+    version on the same arguments (K6's output to 2e-5, each gradient to
+    2e-5 of its largest), at the shapes this path gives them.  Then the
+    CoMer arm's first ``lockstep`` steps (fuse dropout off, the same seeded
+    weights) on the card and on the CPU: each step's loss within 1e-4
+    (relative).  At init CTI's output projections are zero, so the first
+    step's loss does not depend on K6 and K3-rect sees dO = 0; the third
+    step's loss runs through K6, the fourth's through the K3-rect
+    gradients of the steps before (tests/test_torch_comer_benchmark.py::
+    test_cti_attention_enters_the_loss).  Last, the CoMer arm twice for
+    ``repeat`` steps under the settings ``main`` chose: equal losses (under
+    cuDNN's default convolution algorithms two runs part within a few dozen
+    steps).
+    Returns launches of the check and the measurements."""
+    import collections
+
+    import torch
+
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.ops import attention_kernels as ak
+    from weclip_tpu_torch.tools import comer_benchmark as tool
+
+    widths = collections.defaultdict(collections.Counter)
+    held = collections.defaultdict(collections.Counter)
+    worst = collections.defaultdict(float)   # (wrapper, Dh) -> err / tol
+    plain_of = {"cross_attention_core": ak.cross_attention_core_plain,
+                "attention_bwd": ak.attention_bwd_plain}
+    wrapped = {}
+
+    def plain_args(name, args, kw):
+        """The plain version's arguments for a wrapper call, or None where
+        the call asks for what the plain version does not take."""
+        if name == "cross_attention_core":
+            return None if kw else args
+        kw = dict(kw)
+        sd = kw.pop("score_dtype", args[5] if len(args) > 5 else None)
+        if kw.get("stats") is not None or kw.get("q_scale", 1.0) != 1.0 or len(args) > 6:
+            return None
+        return (*args[:5], sd)
+
+    def hold(name, dh, got, args):
+        """The call's outputs against the plain version's, on the card."""
+        with torch.no_grad():
+            ref = plain_of[name](*args)
+        if name == "cross_attention_core":
+            pairs = [("out", got, ref, 2e-5)]
+        else:
+            pairs = [(g, a, r, 2e-5 * float(r.abs().max()))
+                     for g, a, r in zip(("dq", "dk", "dv"), got, ref)]
+        for what, a, r, tol in pairs:
+            err = max_err(a, r)
+            if err > tol:
+                raise AssertionError(f"comer_benchmark: {name} at Dh {dh} {what} "
+                                     f"{list(a.shape)}: max_abs_err {err:.3e} > {tol:.3e}")
+            key = f"{name} Dh {dh}"
+            worst[key] = max(worst[key], err / tol if tol > 0 else 0.0)
+        held[name][dh] += 1
+
+    def logged(name, fn):
+        def call(*args, **kw):
+            q = args[0]
+            out = fn(*args, **kw)
+            if q.is_cuda:
+                dh = int(q.shape[-1])
+                widths[name][dh] += 1
+                p_args = plain_args(name, args, kw) if name in plain_of else None
+                if p_args is not None:
+                    hold(name, dh, out, p_args)
+            return out
+        return call
+
+    for name in ("attention_core", "attention_bwd", "cross_attention_core"):
+        wrapped[name] = getattr(ak, name)
+        setattr(ak, name, logged(name, wrapped[name]))
+    cudnn_deterministic = torch.backends.cudnn.deterministic
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = tool.main(["--steps", str(steps), "--seeds", "1", "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"comer_benchmark": dict(kernels.launches)}
+    finally:
+        for name, fn in wrapped.items():
+            setattr(ak, name, fn)
+    by_width = {k: dict(v) for k, v in widths.items()}
+    print(f"[comer-benchmark] {steps} steps an arm on the card: {json.dumps(out)}; "
+          f"{seconds:.1f} s; launches {json.dumps(launches['comer_benchmark'])}; wrapper "
+          f"calls by head width {json.dumps(by_width)}", flush=True)
+    if not (by_width.get("cross_attention_core", {}).get(128)
+            and by_width.get("attention_bwd", {}).get(128)
+            and launches["comer_benchmark"]["cross_attention"]
+            and launches["comer_benchmark"]["attention_bwd_rect"]):
+        raise AssertionError("comer_benchmark: K6 and K3-rect did not run at Dh 128")
+    for name in plain_of:
+        if held[name][128] != widths[name][128]:
+            raise AssertionError(f"comer_benchmark: {held[name][128]} of "
+                                 f"{widths[name][128]} {name} calls at Dh 128 held")
+    print(f"[comer-benchmark] every K6 and K3/K3-rect call on the card held against its "
+          f"plain version: {json.dumps({k: dict(v) for k, v in held.items()})}; worst "
+          f"error / tolerance {json.dumps(dict(worst))}", flush=True)
+    for key in ("plain_miou", "comer_miou", "plain_final_loss", "comer_final_loss"):
+        if not math.isfinite(out[key]):
+            raise AssertionError(f"comer_benchmark: {key} {out[key]}")
+    losses = {device: tool.run_arm(True, lockstep, 4, 0, 0, device=device, dropout=False)[1]
+              for device in ("cuda", "cpu")}
+    rel = [abs(c - h) / abs(h) for c, h in zip(losses["cuda"], losses["cpu"])]
+    print(f"[comer-benchmark] CoMer arm's first {lockstep} steps, card / CPU loss: "
+          + ", ".join(f"{c:.7f} / {h:.7f} ({r:.3e})"
+                      for c, h, r in zip(losses["cuda"], losses["cpu"], rel))
+          + " (tol 1e-4 relative)", flush=True)
+    if max(rel) > 1e-4:
+        raise AssertionError(f"comer_benchmark: card and CPU losses differ by {rel}")
+    try:   # main's settings still hold
+        runs = [tool.run_arm(True, repeat, 4, 0, 1, device="cuda")[1] for _ in range(2)]
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_deterministic
+    parted = [i + 1 for i, (a, b) in enumerate(zip(*runs)) if a != b]
+    print(f"[comer-benchmark] CoMer arm, seed 1, run twice for {repeat} steps: "
+          f"{'equal losses' if not parted else f'losses part at step {parted[0]}'}",
+          flush=True)
+    if parted:
+        raise AssertionError(f"comer_benchmark: two runs part at step {parted[0]}")
+    return launches, {**out, "seconds": seconds, "wrapper_calls_by_head_width": by_width,
+                      "held_calls": {k: dict(v) for k, v in held.items()},
+                      "held_worst_err_over_tol": dict(worst),
+                      "lockstep_loss_card": losses["cuda"], "lockstep_loss_cpu": losses["cpu"],
+                      "lockstep_rel_diff": rel}
 
 
 # OpenAI's ViT-B/16 checkpoint: vision 768 wide, 12 layers, patch 16, 197
@@ -2768,15 +3185,17 @@ def main() -> int:
           f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})", flush=True)
     records = check_kernels()
     check_cti_kernels(records)
+    attention_resources = check_widths(records)
     launches, pipeline = run_pipeline()
-    results = {"pipeline": pipeline}
+    results = {"pipeline": pipeline, "attention_resources": attention_resources}
     work = tempfile.mkdtemp(prefix="weclip_chip_smoke_")
     try:
         for name, phase in (("comer_pipeline", run_comer_pipeline),
                             ("training", run_training),
                             ("coco_pseudo_label", run_coco_pseudo_label),
                             ("train_loop", lambda: run_train_loop(keep=work)),
-                            ("evaluator", run_evaluator), ("seg_step", run_seg_steps)):
+                            ("evaluator", run_evaluator), ("seg_step", run_seg_steps),
+                            ("comer_benchmark", run_comer_benchmark)):
             phase_launches, results[name] = phase()
             launches.update(phase_launches)
         ckpt, phase_launches, results["clip_checkpoint"] = run_clip_checkpoint(work, card)

@@ -24,6 +24,9 @@ from weclip_tpu_torch.ops import attention_kernels as tak
 F32_TOL = 2e-5
 GRAD_TOL = 5e-4
 BF16_TOL = 2e-2
+# the kernels' compiled widths (16, 32, 64, 128) and widths between them,
+# which run the next one up with zero lanes
+HEAD_DIMS = [8, 16, 20, 32, 48, 64, 80, 128]
 
 
 def _qkv_mask(seed, b, h, l, dh, n_valid):
@@ -45,7 +48,7 @@ def _mha_params(seed, d):
 
 
 @pytest.mark.parametrize("export", [True, False])
-@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 def test_attention_core_plain_matches_pallas(export, dh):
     """(a) K1/K2's plain version vs attention_core_pallas(interpret=True),
     ragged L with masked keys and one all-masked row."""
@@ -65,10 +68,11 @@ def test_attention_core_plain_matches_pallas(export, dh):
         assert amap is None and ref_map is None
 
 
-def test_attention_core_plain_matches_pallas_bf16():
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_attention_core_plain_matches_pallas_bf16(dh):
     """(a) the bf16 score path: both round q*scale, P (or exp) to bf16 at
     the same points, so they differ by bf16 rounding of the output only."""
-    b, h, l, dh = 2, 2, 40, 64
+    b, h, l = 2, 2, 40
     q, k, v, kmask = _qkv_mask(1, b, h, l, dh, n_valid=(40, 17))
     for export in (True, False):
         ref_out, _ = jpal.attention_core_pallas(
@@ -83,9 +87,10 @@ def test_attention_core_plain_matches_pallas_bf16():
                                    rtol=BF16_TOL, atol=BF16_TOL)
 
 
-def test_attention_bwd_plain_matches_pallas():
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_attention_bwd_plain_matches_pallas(dh):
     """(b) K3's plain version vs attention_bwd_pallas(interpret=True)."""
-    b, h, l, dh = 2, 2, 36, 32
+    b, h, l = 2, 2, 36
     q, k, v, kmask = _qkv_mask(2, b, h, l, dh, n_valid=(36, 20))
     do = np.random.default_rng(3).standard_normal((b, h, l, dh)).astype(np.float32)
     qs = q * dh ** -0.5
@@ -219,7 +224,7 @@ def test_padded_key_bias_masks_the_padding():
     assert tak._padded_key_bias(torch.ones((1, 64))).shape == (1, 64)
 
 
-@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("score_dtype", [torch.float32, torch.bfloat16])
 def test_k1_row_stats_and_map_plain_compose_to_the_map(score_dtype, dh):
     """K1's two launches, as their plain versions: the row statistics, then
@@ -246,8 +251,19 @@ def test_k1_row_stats_and_map_plain_compose_to_the_map(score_dtype, dh):
 
 
 def test_attention_core_writes_stats_only_from_the_bf16_map_kernel():
-    """``stats`` is an output of the bf16 K1 on CUDA; elsewhere it is
-    refused rather than left unwritten."""
+    """``stats`` is an output of K1 on CUDA (bf16 and, since the fp32 K1
+    took the same two-launch form, fp32); elsewhere it is refused rather
+    than left unwritten."""
     q, k, v, kmask = map(torch.from_numpy, _qkv_mask(15, 1, 2, 8, 32, n_valid=(8,)))
     with pytest.raises(ValueError):
         tak.attention_core(q, k, v, kmask, stats=torch.empty((1, 2, 8, 2)))
+
+
+@pytest.mark.parametrize("dh", [0, 129, 256])
+def test_head_widths_past_the_kernels_are_refused(dh):
+    """The one width limit left: Dh above 128 (and Dh 0) raises a
+    ValueError that names the limit, before any launch."""
+    with pytest.raises(ValueError, match="1..128"):
+        tak._check_head_dim("attention_core", dh)
+    for ok in (1, 8, 20, 80, 128):
+        tak._check_head_dim("attention_core", ok)

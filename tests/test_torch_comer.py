@@ -52,12 +52,18 @@ def _rect(seed, b, h, lq, lk, dh, n_valid):
     return q, k, v, kmask
 
 
+# CTI's head width at tests/tiny.py's config is 256 / 2 = 128; the rest are
+# the kernels' other compiled widths and widths between them
+HEAD_DIMS = [8, 20, 32, 48, 80, 128]
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("lq,lk", [(40, 23), (19, 70)])
-def test_cross_attention_core_plain_matches_pallas(lq, lk):
+def test_cross_attention_core_plain_matches_pallas(lq, lk, dh):
     """(1) K6's plain version vs cross_attention_core_pallas(interpret=True),
     Lq != Lk, partly masked keys and one all-masked key row, fp32 and
     bf16."""
-    q, k, v, kmask = _rect(0, 3, 2, lq, lk, 32, (lk, lk // 2, 0))
+    q, k, v, kmask = _rect(0, 3, 2, lq, lk, dh, (lk, lk // 2, 0))
     ref = jpal.cross_attention_core_pallas(*map(jnp.asarray, (q, k, v, kmask)),
                                            interpret=True, score_dtype=jnp.float32)
     got = tak.cross_attention_core(*map(torch.from_numpy, (q, k, v, kmask)))
@@ -75,12 +81,13 @@ def test_cross_attention_core_plain_matches_pallas(lq, lk):
     np.testing.assert_allclose(got, ref, rtol=0, atol=bf16_ulp(np.abs(ref).max()))
 
 
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("lq,lk", [(52, 18), (18, 52)])
-def test_attention_bwd_rect_plain_matches_pallas(lq, lk):
+def test_attention_bwd_rect_plain_matches_pallas(lq, lk, dh):
     """(2) the rectangular attention_bwd_plain vs
     attention_bwd_pallas(interpret=True) in both directions, each gradient
     to 2e-5 of its own largest magnitude."""
-    q, k, v, kmask = _rect(1, 2, 2, lq, lk, 32, (lk, lk - 7))
+    q, k, v, kmask = _rect(1, 2, 2, lq, lk, dh, (lk, lk - 7))
     do = np.random.default_rng(2).standard_normal(q.shape).astype(np.float32)
     ref = jpal.attention_bwd_pallas(*map(jnp.asarray, (q, k, v, do, kmask)),
                                     interpret=True, score_dtype=jnp.float32)

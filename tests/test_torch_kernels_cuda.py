@@ -15,6 +15,10 @@ from weclip_tpu_torch.refine import par_kernels as pk
 
 pytestmark = pytest.mark.cuda
 
+# every head width the kernels take runs a compiled instance (16, 32, 64,
+# 128) or the next one up with zero lanes
+WIDTHS = [8, 16, 20, 32, 48, 64, 80, 128]
+
 
 @pytest.fixture
 def card():
@@ -34,7 +38,7 @@ def _qkv(card, b, h, l, dh, dtype, n_valid):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("dh", WIDTHS)
 @pytest.mark.parametrize("export", [True, False])
 @pytest.mark.parametrize("l", [77, 626, 1025])
 def test_attention_fwd_kernel_matches_plain(card, dtype, tol, dh, export, l):
@@ -61,11 +65,12 @@ def test_attention_fwd_no_map_takes_long_sequences(card, dtype, tol):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("l", [70, 77, 626, 1025])
-def test_attention_bwd_kernel_matches_plain(card, dtype, tol, l):
-    q, k, v, km = _qkv(card, 3, 2, l, 64, dtype, (l, l // 2, 0))
+@pytest.mark.parametrize("l,dh", [(70, 64), (77, 64), (626, 64), (1025, 64)]
+                         + [(77, dh) for dh in WIDTHS if dh != 64])
+def test_attention_bwd_kernel_matches_plain(card, dtype, tol, l, dh):
+    q, k, v, km = _qkv(card, 3, 2, l, dh, dtype, (l, l // 2, 0))
     do = torch.randn(q.shape, device=card)
-    qs = q.float() * 64 ** -0.5
+    qs = q.float() * dh ** -0.5
     before = kernels.launches["attention_bwd"]
     got = ak.attention_bwd(qs, k, v, do, km, dtype)
     ref = ak.attention_bwd_plain(qs, k, v, do, km, dtype)
@@ -124,13 +129,16 @@ def test_cross_attention_kernel_matches_plain(card, dtype, lq, lk):
     torch.testing.assert_close(out, ref, rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("dh", WIDTHS)
 @pytest.mark.parametrize("lq,lk", [(3294, 625), (625, 3294)])
 def test_cross_attention_wgmma_kernel_at_ragged_lengths(card, dh, lq, lk):
     """K6 under bf16 (the wgmma kernel) where neither length is a whole
-    number of 64-row tiles, at both head widths its tensor maps take
-    (128-byte swizzle for Dh 64, 64-byte for Dh 32); one bf16 ulp of the
-    largest output, and exactly 0 for the image with no valid key."""
+    number of 64-row tiles, at every head width: the swizzles of its tensor
+    maps (128-byte for Dh 64 and 128, two boxes a row at 128; 64-byte for
+    32; 32-byte for 16), zero lanes from TMA for widths between them, a
+    zero-padded copy for a width that is not a multiple of 8 (20); one bf16
+    ulp of the largest output, and exactly 0 for the image with no valid
+    key."""
     q, k, v, km = _rect(card, lq, lk, torch.bfloat16, dh)
     before = kernels.launches["cross_attention"]
     out = ak.cross_attention_core(q, k, v, km)
@@ -171,12 +179,14 @@ def test_attention_fwd_export_map_is_deterministic(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("lq,lk", [(2100, 400), (400, 2100), (64, 5376)])
-def test_attention_bwd_rect_kernel_matches_plain(card, dtype, lq, lk):
+@pytest.mark.parametrize("lq,lk,dh", [(2100, 400, 64), (400, 2100, 64), (64, 5376, 64)]
+                         + [(2100, 400, dh) for dh in WIDTHS if dh != 64])
+def test_attention_bwd_rect_kernel_matches_plain(card, dtype, lq, lk, dh):
     """K3-rect: each gradient against its own largest magnitude, fp32 to
     1e-5 of it, bf16 to one bf16 ulp (2^-8) of it (a P or dS element at a
-    rounding midpoint may round either way)."""
-    q, k, v, km = _rect(card, lq, lk, dtype)
+    rounding midpoint may round either way); at every head width (128:
+    CTI's at the tiny config)."""
+    q, k, v, km = _rect(card, lq, lk, dtype, dh)
     do = torch.randn(q.shape, device=card)
     before = kernels.launches["attention_bwd_rect"]
     got = ak.attention_bwd(q.float(), k, v, do, km, dtype)
@@ -243,9 +253,11 @@ def test_par_propagate_iteration_counts(card, num_iter):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
-    q, k, v, km = _qkv(card, 1, 2, 16, 48, torch.float32, (16,))
-    with pytest.raises(ValueError):
-        ak.attention_core(q, k, v, km)                       # Dh 48
+    q, k, v, km = _qkv(card, 1, 2, 16, 129, torch.float32, (16,))
+    with pytest.raises(ValueError, match="1..128"):
+        ak.attention_core(q, k, v, km)                       # Dh 129
+    with pytest.raises(ValueError, match="1..128"):
+        ak.cross_attention_core(q, k, v, km)
     q, k, v, km = _qkv(card, 1, 2, 16, 64, torch.float16, (16,))
     with pytest.raises(ValueError):
         ak.attention_core(q, k, v, km)                       # fp16
@@ -254,11 +266,49 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
                         ParConfig())
     with pytest.raises(ValueError):
         ak.cross_attention_core(q, k[:, :, :8], v[:, :, :8], km[:, :8])   # fp16
-    with pytest.raises(RuntimeError):                        # fp32 K1: score rows > smem
-        ak.attention_core(*_qkv(card, 1, 2, 4096, 64, torch.float32, (4096,)))
-    # the refused request leaves no error behind for the next launch
+    with pytest.raises(ValueError):                          # no dilation
+        pk.par_affinity(torch.zeros((1, 3, 8, 8), device=card), ParConfig(dilations=()))
+    # the refused requests leave no error behind for the next launch
     assert np.isfinite(ak.attention_core(*_qkv(card, 1, 2, 16, 64, torch.float32,
                                                (16,)))[0].cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("l", [2048, 4096])
+def test_attention_fwd_export_fp32_takes_long_sequences(card, l):
+    """K1 under fp32 is a key-tiled forward with row statistics and a map
+    kernel: L past the old whole-row limit (about 1650) runs, output and
+    map within 2e-5 of the plain version, an image with masked keys, and
+    the statistics written to the caller's buffer."""
+    q, k, v, km = _qkv(card, 2, 3, l, 64, torch.float32, (l, l // 3))
+    stats = torch.empty((2, 3, l, 2), device=card)
+    before = kernels.launches["attention_fwd_export"]
+    out, amap = ak.attention_core(q, k, v, km, export_weights=True, stats=stats)
+    assert kernels.launches["attention_fwd_export"] == before + 1
+    ref, ref_map = ak.attention_core_plain(q, k, v, km, export_weights=True)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-5)
+    torch.testing.assert_close(amap, ref_map, rtol=0, atol=2e-5)
+    want = ak.attention_row_stats_plain(q, k, km)
+    torch.testing.assert_close(stats, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("far", [None, True])
+@pytest.mark.parametrize("dil", [(1, 2, 4, 8, 12, 24, 32, 48), (5,), (1, 2, 64),
+                                 (1, 2, 4, 8, 12, 24)])
+@pytest.mark.parametrize("b,c,h,w", [(1, 5, 20, 28), (2, 7, 130, 200)])
+def test_par_kernels_any_dilation_set(card, dil, b, c, h, w, far):
+    """K4 and K5 at dilation sets past the packed form (more than 6, above
+    the staged halo of 24, past the image), at one small dilation and at
+    the shipped set, K5 in the form its wrapper picks and in the far form
+    asked for, against the plain versions at 2e-5."""
+    cfg = ParConfig(dilations=dil, num_iter=5)
+    g = torch.Generator(device=card).manual_seed(2)
+    imgs = torch.randn((b, 3, h, w), generator=g, device=card)
+    aff = pk.par_affinity(imgs, cfg)
+    torch.testing.assert_close(aff, par_plain.par_affinity(imgs, cfg), rtol=2e-5, atol=2e-5)
+    masks = torch.rand((b, c, h, w), generator=g, device=card)
+    torch.testing.assert_close(pk.par_propagate(masks, aff, cfg, far=far),
+                               par_plain.par_propagate(masks, aff, cfg),
+                               rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("b, c, hs, ws, r", [(2, 21, 40, 36, 8), (1, 81, 33, 47, 5),

@@ -61,6 +61,10 @@ def test_par_refine_matches_pallas(dil, iters, img_hw):
     (1, 21, 20, 28, (1, 2, 4, 8, 12, 24), 2),   # the clamp reaches past the image
     (2, 5, 37, 45, (1, 2, 4), 3),                 # ragged
     (1, 81, 24, 40, (1, 2, 4, 8, 12, 24), 2),    # COCO without class ids
+    # sets past the packed form's 6 dilations of at most 24 (the far form)
+    (1, 5, 20, 28, (1, 2, 4, 8, 12, 24, 32, 48), 2),
+    (1, 5, 20, 28, (5,), 2),
+    (1, 5, 20, 28, (1, 2, 64), 2),
 ])
 def test_par_refine_matches_jax_at_tile_edges(b, c, h, w, dil, iters):
     """The plain par_refine (K4 and K5's oracle) against the JAX XLA
@@ -81,8 +85,8 @@ def test_par_refine_matches_jax_at_tile_edges(b, c, h, w, dil, iters):
 
 
 def test_pos_weights_are_computed_once_per_config():
-    """K4's wrapper keeps the positional term per config, as the host array
-    the kernel takes by value, instead of rebuilding it and copying it to
+    """K4's wrapper keeps the positional term per config, and its device
+    copy per config and device, instead of rebuilding it and copying it to
     the card on every call."""
     cfg = ParConfig()
     first = tpk._pos_weights(cfg.dilations, cfg.w1, cfg.w2)
@@ -90,6 +94,10 @@ def test_pos_weights_are_computed_once_per_config():
                                   tpar.pos_weights(cfg).numpy())
     assert tpk._pos_weights(cfg.dilations, cfg.w1, cfg.w2) is first
     assert len(tpk._pos_weights((1, 2), cfg.w1, cfg.w2)) == 16
+    cpu = torch.device("cpu")
+    copy = tpk._on_device(tuple(first), torch.float32, cpu)
+    np.testing.assert_array_equal(copy.numpy(), tpar.pos_weights(cfg).numpy())
+    assert tpk._on_device(tuple(first), torch.float32, cpu) is copy
 
 
 def test_pos_weights_match_reference():
@@ -135,10 +143,35 @@ def test_upsample_pos_emb_matches_jax():
 
 
 def test_par_kernel_wrappers_reject_bad_config():
+    """The kernels take any non-empty set of dilations >= 1 (more than 6,
+    and wider than the staged halo of 24, run the far form); an empty set
+    or a dilation below 1 is refused."""
     with pytest.raises(ValueError):
-        tpk._dilations(ParConfig(dilations=tuple(range(1, 8))))
-    with pytest.raises(ValueError):           # wider than the staged halo
-        tpk._dilations(ParConfig(dilations=(1, 32)))
+        tpk.effective_dilations((), 20, 28)
+    with pytest.raises(ValueError):
+        tpk.effective_dilations((1, 0), 20, 28)
+    assert tpk.effective_dilations(tuple(range(1, 8)), 512, 512) == tuple(range(1, 8))
+    assert tpk.effective_dilations((1, 2, 64), 20, 28) == (1, 2, 27)
+    assert tpk.effective_dilations((3,), 1, 1) == (1,)
+    # the packed form takes at most 6 dilations of at most 24, the far form the rest
+    assert tpk.packed((1, 2, 4, 8, 12, 24)) and tpk.packed((5,))
+    assert not tpk.packed(tuple(range(1, 8))) and not tpk.packed((1, 2, 27))
+
+
+@pytest.mark.parametrize("dil,h,w", [((1, 2, 64), 20, 28), ((5, 48), 9, 3), ((2,), 1, 1)])
+def test_effective_dilations_read_the_same_neighbours(dil, h, w):
+    """The wrappers hand the kernels min(d, max(H, W) - 1): on the plain
+    versions, affinities (positional term off: it is computed from the true
+    dilations) and propagation are bit-equal with either set."""
+    rng = np.random.default_rng(7)
+    imgs = torch.from_numpy(rng.standard_normal((1, 3, h, w)).astype(np.float32))
+    masks = torch.from_numpy(rng.uniform(0, 1, (1, 4, h, w)).astype(np.float32))
+    eff = tpk.effective_dilations(dil, h, w)
+    cfgs = [ParConfig(dilations=d, w2=0.0, num_iter=2) for d in (dil, eff)]
+    aff = [tpar.par_affinity(imgs, c) for c in cfgs]
+    assert torch.equal(aff[0], aff[1])
+    assert torch.equal(tpar.par_propagate(masks, aff[0], cfgs[0]),
+                       tpar.par_propagate(masks, aff[0], cfgs[1]))
 
 
 def _fma32(a, b, c):

@@ -99,4 +99,50 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
                : "memory");
 }
 
+// A kernel's large shared arrays: each declared static (`st`) where they
+// fit the 48 KB of static shared memory (kStatic), else the same array of
+// the dynamic shared memory laid out as a struct T
+// (dynamic_block<T>().member), the static one collapsed to one element.
+// The static arrays stay separate declarations: grouped in a struct, the
+// same arrays compile to other code (attn_map_kernel<32>: 127 registers
+// instead of 96 on sm_90a).
+template <typename T>
+__device__ __forceinline__ T& dynamic_block() {
+  extern __shared__ __align__(16) uint8_t dynamic_smem[];
+  return *reinterpret_cast<T*>(dynamic_smem);
+}
+
+template <bool kStatic, typename S, typename D>
+__device__ __forceinline__ auto& static_or_dynamic(S& st, D& dyn) {
+  if constexpr (kStatic)
+    return st;
+  else
+    return dyn;
+}
+
+// the dynamic shared memory of a launch of `kern`: 0 where its arrays are
+// static, else sizeof(T), which the kernel is opted in to
+template <typename T, bool kStatic, typename Kernel>
+cudaError_t smem_bytes(Kernel kern, int* bytes) {
+  *bytes = kStatic ? 0 : (int)sizeof(T);
+  if (*bytes == 0) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, *bytes);
+}
+
 }  // namespace weclip
+
+// F(DH, PAD) for the instance that runs head width Dh: the exact width
+// where it is one, else the next one up with padded lanes; Dh > 128 or < 1
+// is refused
+#define WECLIP_DISPATCH_DH(Dh, F)                            \
+  do {                                                       \
+    if ((Dh) == 64) return F(64, false);                     \
+    if ((Dh) == 32) return F(32, false);                     \
+    if ((Dh) == 16) return F(16, false);                     \
+    if ((Dh) == 128) return F(128, false);                   \
+    if ((Dh) >= 1 && (Dh) < 16) return F(16, true);          \
+    if ((Dh) > 16 && (Dh) < 32) return F(32, true);          \
+    if ((Dh) > 32 && (Dh) < 64) return F(64, true);          \
+    if ((Dh) > 64 && (Dh) < 128) return F(128, true);        \
+    return cudaErrorInvalidValue;                            \
+  } while (0)

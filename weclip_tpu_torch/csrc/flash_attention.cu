@@ -57,6 +57,18 @@
 //   dS = P (dP - delta) and dQ = dS K; it writes (max, 1/sum, delta).  A
 //   dK/dV kernel per 64 keys loops over the query tiles with those
 //   statistics.
+//
+// Head widths.  Every kernel is compiled at Dh 16, 32, 64 and 128 (DH).  A
+// width Dh <= 128 that is not one of them (PAD) runs the next one up: its
+// rows are read with the true row stride Dh, the lanes d >= Dh of every
+// staged q, k, v and dO tile are zeros (which leave every product
+// unchanged), and only the Dh true columns are written.  Rows whose width is
+// a multiple of 8 are staged with cp.async as the exact widths are; other
+// widths, whose rows are not 16-byte aligned, with plain loads.  At Dh 128
+// the staged tiles outgrow the 48 KB of static shared memory, so those
+// instances take theirs dynamically (common.cuh::static_or_dynamic); and
+// the dK/dV kernel, whose two 128-wide accumulators would spill, runs as
+// two launches, one for dK and one for dV, each recomputing S^T.
 
 #include "common.cuh"
 
@@ -85,28 +97,63 @@ __device__ __forceinline__ uint4 scale8(uint4 x, float s) {
   return make_uint4(scale2(x.x, s), scale2(x.y, s), scale2(x.z, s), scale2(x.w, s));
 }
 
-// rows [0, n) of a DH-wide bf16 array into shared memory (row stride
-// DH + 8) as bf16(x * scale), zeros in rows [n, kRows); plain loads
-template <int DH>
-__device__ __forceinline__ void stage_scaled(bf* dst, const bf* src, int n, float scale,
-                                             int tid) {
+// eight bf16 values of columns [c, c + 8) of a row `ld` wide, zeros at
+// columns >= ld; one 16-byte load where the row is 16-byte aligned
+__device__ __forceinline__ uint4 load8(const bf* row, int c, int ld) {
+  if (ld % 8 == 0) {
+    if (c >= ld) return make_uint4(0u, 0u, 0u, 0u);
+    return *reinterpret_cast<const uint4*>(row + c);
+  }
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint16_t lo = c + 2 * i < ld ? reinterpret_cast<const uint16_t*>(row)[c + 2 * i] : 0;
+    const uint16_t hi =
+        c + 2 * i + 1 < ld ? reinterpret_cast<const uint16_t*>(row)[c + 2 * i + 1] : 0;
+    w[i] = (uint32_t)lo | ((uint32_t)hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// rows [0, n) of a bf16 array into shared memory (row stride DH + 8) as
+// bf16(x * scale), zeros in rows [n, kRows); plain loads.  The rows are DH
+// wide, or (PAD) `ld` < DH wide with zeros staged in the lanes past ld
+template <int DH, bool PAD>
+__device__ __forceinline__ void stage_scaled(bf* dst, const bf* src, int n, int ld,
+                                             float scale, int tid) {
   constexpr int kVec = DH / 8;
   for (int i = tid; i < kRows * kVec; i += kThreads) {
     const int r = i / kVec, c = (i % kVec) * 8;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n) x = scale8(*reinterpret_cast<const uint4*>(src + (size_t)r * DH + c), scale);
+    if (PAD) {
+      if (r < n) x = scale8(load8(src + (size_t)r * ld, c, ld), scale);
+    } else {
+      if (r < n) x = scale8(*reinterpret_cast<const uint4*>(src + (size_t)r * DH + c), scale);
+    }
     *reinterpret_cast<uint4*>(dst + r * (DH + 8) + c) = x;
   }
 }
 
-// the same without scaling, by cp.async (zeros in rows [n, kTile))
-template <int DH>
-__device__ __forceinline__ void async_tile(bf* dst, const bf* src, int n, int tid) {
+// the same without scaling, by cp.async (zeros in rows [n, kTile)); PAD
+// rows whose width is not a multiple of 8 are copied by plain loads and
+// stores, which the barrier that publishes the tile orders as it does the
+// copies
+template <int DH, bool PAD>
+__device__ __forceinline__ void async_tile(bf* dst, const bf* src, int n, int ld, int tid) {
   constexpr int kVec = DH / 8;
   for (int i = tid; i < kTile * kVec; i += kThreads) {
     const int r = i / kVec, c = (i % kVec) * 8;
     const bool in = r < n;
-    cp_async16(dst + r * (DH + 8) + c, src + (size_t)(in ? r : 0) * DH + c, in ? 16 : 0);
+    if (!PAD) {
+      cp_async16(dst + r * (DH + 8) + c, src + (size_t)(in ? r : 0) * DH + c, in ? 16 : 0);
+    } else if (ld % 8 == 0) {
+      const bool on = in && c < ld;
+      cp_async16(dst + r * (DH + 8) + c, src + (size_t)(in ? r : 0) * ld + (on ? c : 0),
+                 on ? 16 : 0);
+    } else {
+      *reinterpret_cast<uint4*>(dst + r * (DH + 8) + c) =
+          in ? load8(src + (size_t)r * ld, c, ld) : make_uint4(0u, 0u, 0u, 0u);
+    }
   }
 }
 
@@ -164,14 +211,25 @@ __device__ __forceinline__ void accumulate(float (&acc)[DH / 8][4], const uint32
   }
 }
 
-// fp32 (16 x DH) fragments to rows [r0, r0 + 16) of a row-major fp32 array,
-// rows past `rows` skipped
-template <int DH>
+// fp32 (16 x DH) fragments to rows [r0, r0 + 16) of a row-major fp32 array
+// (rows `ld` wide under PAD: only columns < ld), rows past `rows` skipped
+template <int DH, bool PAD>
 __device__ __forceinline__ void store_f32(float* dst, const float (&acc)[DH / 8][4], int r0,
-                                          int rows, int g, int t) {
+                                          int rows, int ld, int g, int t) {
 #pragma unroll
   for (int nt = 0; nt < DH / 8; ++nt) {
     const int col = nt * 8 + 2 * t;
+    if (PAD) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + g + 8 * half;
+        if (row >= rows) continue;
+        float* p = dst + (size_t)row * ld + col;
+        if (col < ld) p[0] = acc[nt][2 * half];
+        if (col + 1 < ld) p[1] = acc[nt][2 * half + 1];
+      }
+      continue;
+    }
     if (r0 + g < rows)
       *reinterpret_cast<float2*>(dst + (size_t)(r0 + g) * DH + col) =
           make_float2(acc[nt][0], acc[nt][1]);
@@ -187,41 +245,77 @@ __device__ __forceinline__ void zero(float (&acc)[DH / 8][4]) {
   for (int nt = 0; nt < DH / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
 }
 
+// the dynamic layouts of each kernel's staged tiles at DH 128, where they
+// outgrow static shared memory (row stride DH + 8)
+constexpr int kMaxStaticDh = 64;
+
+template <int DH>
+struct FwdSmem {
+  bf q[kRows * (DH + 8)];
+  bf k[2][kTile * (DH + 8)];
+  bf v[2][kTile * (DH + 8)];
+};
+
+template <int DH>
+struct MapSmem {
+  bf q[2][kRows * (DH + 8)];
+  bf k[2][kTile * (DH + 8)];
+};
+
+template <int DH>
+struct DqSmem {
+  bf a[kRows * (DH + 8)];
+  bf k[2][kTile * (DH + 8)];
+  bf v[2][kTile * (DH + 8)];
+};
+
+template <int DH>
+struct DkdvSmem {
+  bf q[2][kTile * (DH + 8)];
+  bf d[2][kTile * (DH + 8)];
+};
+
 // ---------------------------------------------------------------------------
 // K2, bf16: one block per (image, head, 64 query rows); one sweep over
 // 64-key tiles with online softmax
 // ---------------------------------------------------------------------------
 
-template <int DH, bool STATS>
+template <int DH, bool PAD, bool STATS>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
                      const bf* __restrict__ v, const float* __restrict__ kbias,
                      bf* __restrict__ out, float* __restrict__ stats, int H, int L,
-                     float scale) {
-  constexpr int QS = DH + 8, KT = DH / 16, NT = DH / 8;
-  __shared__ __align__(16) bf q_s[kRows * QS];
-  __shared__ __align__(16) bf k_s[2][kTile * QS];
-  __shared__ __align__(16) bf v_s[2][kTile * QS];
+                     int ld, float scale) {
+  constexpr int KT = DH / 16, NT = DH / 8;
+  constexpr bool kStatic = DH <= kMaxStaticDh;
+  constexpr int QS = kStatic ? DH + 8 : 1;
+  __shared__ __align__(16) bf q_st[kRows * QS];
+  __shared__ __align__(16) bf k_st[2][kTile * QS];
+  __shared__ __align__(16) bf v_st[2][kTile * QS];
   __shared__ __align__(16) float b_s[2][kTile];
+  auto& q_s = static_or_dynamic<kStatic>(q_st, dynamic_block<FwdSmem<DH>>().q);
+  auto& k_s = static_or_dynamic<kStatic>(k_st, dynamic_block<FwdSmem<DH>>().k);
+  auto& v_s = static_or_dynamic<kStatic>(v_st, dynamic_block<FwdSmem<DH>>().v);
+  const int rw = PAD ? ld : DH;   // the row width in global memory
 
   const int bh = blockIdx.y, b = bh / H, q0 = blockIdx.x * kRows;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const size_t base = (size_t)bh * L;
-  const bf* kb = k + base * DH;
-  const bf* vb = v + base * DH;
+  const bf* kb = k + base * rw;
+  const bf* vb = v + base * rw;
   const float* bias = kbias + (size_t)b * padded(L);
   const int ntiles = (L + kTile - 1) / kTile;
 
   auto stage = [&](int it) {
     const int j0 = it * kTile, n = min(kTile, L - j0), s = it & 1;
-    async_tile<DH>(k_s[s], kb + (size_t)j0 * DH, n, tid);
-    async_tile<DH>(v_s[s], vb + (size_t)j0 * DH, n, tid);
+    async_tile<DH, PAD>(k_s[s], kb + (size_t)j0 * rw, n, rw, tid);
+    async_tile<DH, PAD>(v_s[s], vb + (size_t)j0 * rw, n, rw, tid);
     if (tid < kTile / 4) cp_async16(b_s[s] + 4 * tid, bias + j0 + 4 * tid, 16);
     cp_async_commit();
   };
   stage(0);
-  stage_scaled<DH>(q_s, q + (base + q0) * DH, min(kRows, L - q0), scale, tid);
+  stage_scaled<DH, PAD>(q_s, q + (base + q0) * rw, min(kRows, L - q0), rw, scale, tid);
   __syncthreads();
   uint32_t qa[KT][4];
   load_a<DH>(qa, q_s, warp * 16, lane);
@@ -288,10 +382,19 @@ flash_fwd_mma_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
   const float r0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
   const float r1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
   const int row = q0 + warp * 16 + g;
-  bf* o = out + base * DH;
+  bf* o = out + base * rw;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const int col = nt * 8 + 2 * t;
+    if (PAD) {   // only the true columns
+      const float x[4] = {acc[nt][0] * r0, acc[nt][1] * r0, acc[nt][2] * r1, acc[nt][3] * r1};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = row + 8 * (e >> 1), cc = col + (e & 1);
+        if (rr < L && cc < rw) o[(size_t)rr * rw + cc] = __float2bfloat16_rn(x[e]);
+      }
+      continue;
+    }
     if (row < L)
       *reinterpret_cast<__nv_bfloat162*>(o + (size_t)row * DH + col) =
           __floats2bfloat162_rn(acc[nt][0] * r0, acc[nt][1] * r0);
@@ -316,18 +419,23 @@ flash_fwd_mma_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
 // (1/sum) is added to a head sum held in registers
 // ---------------------------------------------------------------------------
 
-template <int DH>
+template <int DH, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 attn_map_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
                 const float* __restrict__ kbias, const float* __restrict__ stats,
-                float* __restrict__ map, int H, int L, float scale) {
-  constexpr int QS = DH + 8, KT = DH / 16;
+                float* __restrict__ map, int H, int L, int ld, float scale) {
+  constexpr int KT = DH / 16;
   static_assert(kRows == kTile && kThreads == 2 * kRows,
                 "q rows are staged as a key tile; one statistic per thread");
-  __shared__ __align__(16) bf q_s[2][kRows * QS];
-  __shared__ __align__(16) bf k_s[2][kTile * QS];
+  constexpr bool kStatic = DH <= kMaxStaticDh;
+  constexpr int QS = kStatic ? DH + 8 : 1;
+  __shared__ __align__(16) bf q_st[2][kRows * QS];
+  __shared__ __align__(16) bf k_st[2][kTile * QS];
   __shared__ __align__(16) float st_s[2][kRows * 2];
   __shared__ __align__(16) float b_s[kTile];
+  auto& q_s = static_or_dynamic<kStatic>(q_st, dynamic_block<MapSmem<DH>>().q);
+  auto& k_s = static_or_dynamic<kStatic>(k_st, dynamic_block<MapSmem<DH>>().k);
+  const int rw = PAD ? ld : DH;
 
   const int b = blockIdx.z, q0 = blockIdx.y * kRows, j0 = blockIdx.x * kTile;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -337,8 +445,8 @@ attn_map_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
   auto stage = [&](int h) {
     const size_t base = ((size_t)b * H + h) * L;
     const int s = h & 1;
-    async_tile<DH>(q_s[s], q + (base + q0) * DH, nq, tid);
-    async_tile<DH>(k_s[s], k + (base + j0) * DH, nk, tid);
+    async_tile<DH, PAD>(q_s[s], q + (base + q0) * rw, nq, rw, tid);
+    async_tile<DH, PAD>(k_s[s], k + (base + j0) * rw, nk, rw, tid);
     // rows past L get zero statistics (their map entries are not stored)
     const bool in = tid < nq * 2;
     cp_async4(st_s[s] + tid, stats + (base + q0) * 2 + (in ? tid : 0), in ? 4 : 0);
@@ -412,42 +520,48 @@ attn_map_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
 // sum(exp * dP) online; sweep 2 forms dS and accumulates dQ = dS K
 // ---------------------------------------------------------------------------
 
-template <int DH>
+template <int DH, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
                     const bf* __restrict__ v, const bf* __restrict__ dout,
                     const float* __restrict__ kbias, float* __restrict__ dq,
-                    float* __restrict__ stats, int H, int Lq, int Lk, float scale) {
-  constexpr int QS = DH + 8, KT = DH / 16, NT = DH / 8;
-  __shared__ __align__(16) bf a_s[kRows * QS];   // q, then dO
-  __shared__ __align__(16) bf k_s[2][kTile * QS];
-  __shared__ __align__(16) bf v_s[2][kTile * QS];
+                    float* __restrict__ stats, int H, int Lq, int Lk, int ld, float scale) {
+  constexpr int KT = DH / 16, NT = DH / 8;
+  constexpr bool kStatic = DH <= kMaxStaticDh;
+  constexpr int QS = kStatic ? DH + 8 : 1;
+  __shared__ __align__(16) bf a_st[kRows * QS];   // q, then dO
+  __shared__ __align__(16) bf k_st[2][kTile * QS];
+  __shared__ __align__(16) bf v_st[2][kTile * QS];
   __shared__ __align__(16) float b_s[2][kTile];
+  auto& a_s = static_or_dynamic<kStatic>(a_st, dynamic_block<DqSmem<DH>>().a);
+  auto& k_s = static_or_dynamic<kStatic>(k_st, dynamic_block<DqSmem<DH>>().k);
+  auto& v_s = static_or_dynamic<kStatic>(v_st, dynamic_block<DqSmem<DH>>().v);
+  const int rw = PAD ? ld : DH;
 
   const int bh = blockIdx.y, b = bh / H;
   const int q0 = blockIdx.x * kRows, nq = min(kRows, Lq - q0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const bf* kb = k + (size_t)bh * Lk * DH;
-  const bf* vb = v + (size_t)bh * Lk * DH;
+  const bf* kb = k + (size_t)bh * Lk * rw;
+  const bf* vb = v + (size_t)bh * Lk * rw;
   const float* bias = kbias + (size_t)b * padded(Lk);
   const size_t row0 = (size_t)bh * Lq + q0;
   const int ntiles = (Lk + kTile - 1) / kTile;
 
   auto stage = [&](int it) {   // sweep-wide tile index: both sweeps in one pipeline
     const int j0 = (it % ntiles) * kTile, n = min(kTile, Lk - j0), s = it & 1;
-    async_tile<DH>(k_s[s], kb + (size_t)j0 * DH, n, tid);
-    async_tile<DH>(v_s[s], vb + (size_t)j0 * DH, n, tid);
+    async_tile<DH, PAD>(k_s[s], kb + (size_t)j0 * rw, n, rw, tid);
+    async_tile<DH, PAD>(v_s[s], vb + (size_t)j0 * rw, n, rw, tid);
     if (tid < kTile / 4) cp_async16(b_s[s] + 4 * tid, bias + j0 + 4 * tid, 16);
     cp_async_commit();
   };
   stage(0);
   uint32_t qa[KT][4], da[KT][4];
-  stage_scaled<DH>(a_s, q + row0 * DH, nq, scale, tid);
+  stage_scaled<DH, PAD>(a_s, q + row0 * rw, nq, rw, scale, tid);
   __syncthreads();
   load_a<DH>(qa, a_s, warp * 16, lane);
   __syncthreads();
-  stage_scaled<DH>(a_s, dout + row0 * DH, nq, 1.f, tid);
+  stage_scaled<DH, PAD>(a_s, dout + row0 * rw, nq, rw, 1.f, tid);
   __syncthreads();
   load_a<DH>(da, a_s, warp * 16, lane);
 
@@ -523,7 +637,7 @@ flash_bwd_dq_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
     }
     __syncthreads();
   }
-  store_f32<DH>(dq + (size_t)bh * Lq * DH, acc, q0 + warp * 16, Lq, g, t);
+  store_f32<DH, PAD>(dq + (size_t)bh * Lq * rw, acc, q0 + warp * 16, Lq, rw, g, t);
   const int r = q0 + warp * 16 + g;
   if (t == 0) {
     float* st = stats + ((size_t)bh * Lq + r) * 3;
@@ -535,39 +649,48 @@ flash_bwd_dq_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
 // ---------------------------------------------------------------------------
 // K3, bf16: dK = dS^T q and dV = P^T dO for 64 keys of one (image, head),
 // 16 per warp, summed over 64-row query tiles from the row statistics:
-// S^T = K q^T and dP^T = V dO^T give P^T and dS^T, reused as A operands
+// S^T = K q^T and dP^T = V dO^T give P^T and dS^T, reused as A operands.
+// PART: both (kBoth), or only dK or only dV (Dh 128, two launches)
 // ---------------------------------------------------------------------------
 
-template <int DH>
+constexpr int kBoth = 0, kOnlyDk = 1, kOnlyDv = 2;
+
+template <int DH, bool PAD, int PART>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
                       const bf* __restrict__ v, const bf* __restrict__ dout,
                       const float* __restrict__ kbias, const float* __restrict__ stats,
                       float* __restrict__ dk, float* __restrict__ dv, int H, int Lq, int Lk,
-                      float scale) {
-  constexpr int QS = DH + 8, KT = DH / 16, NT = DH / 8;
+                      int ld, float scale) {
+  constexpr int KT = DH / 16, NT = DH / 8;
+  constexpr bool kDk = PART != kOnlyDv, kDv = PART != kOnlyDk;
   static_assert(kRows == kTile, "the key block is staged through a query tile buffer");
-  __shared__ __align__(16) bf q_s[2][kTile * QS];
-  __shared__ __align__(16) bf do_s[2][kTile * QS];
+  constexpr bool kStatic = DH <= kMaxStaticDh;
+  constexpr int QS = kStatic ? DH + 8 : 1;
+  __shared__ __align__(16) bf q_st[2][kTile * QS];
+  __shared__ __align__(16) bf do_st[2][kTile * QS];
   __shared__ __align__(16) float st_s[2][kTile * 3];
+  auto& q_s = static_or_dynamic<kStatic>(q_st, dynamic_block<DkdvSmem<DH>>().q);
+  auto& do_s = static_or_dynamic<kStatic>(do_st, dynamic_block<DkdvSmem<DH>>().d);
+  const int rw = PAD ? ld : DH;
 
   const int bh = blockIdx.y, b = bh / H;
   const int j0 = blockIdx.x * kRows, nk = min(kRows, Lk - j0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const size_t qbase = (size_t)bh * Lq, kbase = (size_t)bh * Lk;
-  const bf* qb = q + qbase * DH;
-  const bf* dob = dout + qbase * DH;
+  const bf* qb = q + qbase * rw;
+  const bf* dob = dout + qbase * rw;
   const float* sb = stats + qbase * 3;
   const int ntiles = (Lq + kTile - 1) / kTile;
 
   // this warp's 16 keys and values as A fragments, held for the whole loop
-  stage_scaled<DH>(q_s[0], k + (kbase + j0) * DH, nk, 1.f, tid);
-  stage_scaled<DH>(do_s[0], v + (kbase + j0) * DH, nk, 1.f, tid);
+  stage_scaled<DH, PAD>(q_s[0], k + (kbase + j0) * rw, nk, rw, 1.f, tid);
+  if (kDk) stage_scaled<DH, PAD>(do_s[0], v + (kbase + j0) * rw, nk, rw, 1.f, tid);
   __syncthreads();
   uint32_t ka[KT][4], va[KT][4];
   load_a<DH>(ka, q_s[0], warp * 16, lane);
-  load_a<DH>(va, do_s[0], warp * 16, lane);
+  if (kDk) load_a<DH>(va, do_s[0], warp * 16, lane);
   const int key0 = j0 + warp * 16 + g;
   // keys past Lk carry the padding's -1e30: their P and dS are exactly 0
   const float bk[2] = {kbias[(size_t)b * padded(Lk) + key0],
@@ -576,8 +699,8 @@ flash_bwd_dkdv_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
 
   auto stage = [&](int it) {
     const int i0 = it * kTile, n = min(kTile, Lq - i0), s = it & 1;
-    async_tile<DH>(q_s[s], qb + (size_t)i0 * DH, n, tid);
-    async_tile<DH>(do_s[s], dob + (size_t)i0 * DH, n, tid);
+    async_tile<DH, PAD>(q_s[s], qb + (size_t)i0 * rw, n, rw, tid);
+    async_tile<DH, PAD>(do_s[s], dob + (size_t)i0 * rw, n, rw, tid);
     // rows past Lq get zero statistics: 1/sum = 0, so their P and dS are 0
     for (int i = tid; i < kTile * 3; i += kThreads) {
       const bool in = i < n * 3;
@@ -587,9 +710,10 @@ flash_bwd_dkdv_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
   };
   stage(0);
 
+  // a part's unused accumulator is never touched and takes no registers
   float adk[NT][4], adv[NT][4];
-  zero<DH>(adk);
-  zero<DH>(adv);
+  if (kDk) zero<DH>(adk);
+  if (kDv) zero<DH>(adv);
   for (int it = 0; it < ntiles; ++it) {
     const int s = it & 1;
     if (it + 1 < ntiles) {
@@ -604,7 +728,7 @@ flash_bwd_dkdv_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
     for (int qc = 0; qc < ni; qc += 16) {
       float cs[2][4], cp[2][4];
       product16<DH>(cs, ka, q_s[s], qc, lane);
-      product16<DH>(cp, va, do_s[s], qc, lane);
+      if (kDk) product16<DH>(cp, va, do_s[s], qc, lane);
       // element (key g + 8 half, query qc + 8 j + 2 t + e) is fragment
       // a[2 j + half] of the 16-key x 16-query A operand
       uint32_t pa[4], sa[4];
@@ -618,60 +742,94 @@ flash_bwd_dkdv_kernel(const bf* __restrict__ q, const bf* __restrict__ k,
             const float* st = st_s[s] + (qc + 8 * j + 2 * t + e) * 3;
             const float p = expf(cs[j][2 * half + e] + bk[half] - st[0]) * st[1];
             pv[e] = p;
-            sv[e] = p * (cp[j][2 * half + e] - st[2]);
+            if (kDk) sv[e] = p * (cp[j][2 * half + e] - st[2]);
           }
           pa[2 * j + half] = pack_bf16(pv[0], pv[1]);
-          sa[2 * j + half] = pack_bf16(sv[0], sv[1]);
+          if (kDk) sa[2 * j + half] = pack_bf16(sv[0], sv[1]);
         }
       }
-      accumulate<DH>(adk, sa, q_s[s], qc, lane);
-      accumulate<DH>(adv, pa, do_s[s], qc, lane);
+      if (kDk) accumulate<DH>(adk, sa, q_s[s], qc, lane);
+      if (kDv) accumulate<DH>(adv, pa, do_s[s], qc, lane);
     }
     __syncthreads();
   }
-  store_f32<DH>(dk + kbase * DH, adk, j0 + warp * 16, Lk, g, t);
-  store_f32<DH>(dv + kbase * DH, adv, j0 + warp * 16, Lk, g, t);
+  if (kDk) store_f32<DH, PAD>(dk + kbase * rw, adk, j0 + warp * 16, Lk, rw, g, t);
+  if (kDv) store_f32<DH, PAD>(dv + kbase * rw, adv, j0 + warp * 16, Lk, rw, g, t);
 }
 
-template <int DH>
+template <int DH, bool PAD>
 cudaError_t launch_fwd(const bf* q, const bf* k, const bf* v, const float* kbias, bf* out,
-                       float* stats, int B, int H, int L, float scale, cudaStream_t s) {
+                       float* stats, int B, int H, int L, int ld, float scale,
+                       cudaStream_t s) {
   const dim3 grid((L + kRows - 1) / kRows, B * H);
-  if (stats)
-    flash_fwd_mma_kernel<DH, true><<<grid, kThreads, 0, s>>>(q, k, v, kbias, out, stats, H, L, scale);
-  else
-    flash_fwd_mma_kernel<DH, false><<<grid, kThreads, 0, s>>>(q, k, v, kbias, out, nullptr, H,
-                                                               L, scale);
+  int smem = 0;
+  cudaError_t e;
+  if (stats) {
+    auto kern = flash_fwd_mma_kernel<DH, PAD, true>;
+    if ((e = smem_bytes<FwdSmem<DH>, (DH <= kMaxStaticDh)>(kern, &smem)) != cudaSuccess) return e;
+    kern<<<grid, kThreads, smem, s>>>(q, k, v, kbias, out, stats, H, L, ld, scale);
+  } else {
+    auto kern = flash_fwd_mma_kernel<DH, PAD, false>;
+    if ((e = smem_bytes<FwdSmem<DH>, (DH <= kMaxStaticDh)>(kern, &smem)) != cudaSuccess) return e;
+    kern<<<grid, kThreads, smem, s>>>(q, k, v, kbias, out, nullptr, H, L, ld, scale);
+  }
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, bool PAD>
 cudaError_t launch_map(const bf* q, const bf* k, const float* kbias, const float* stats,
-                       float* map, int B, int H, int L, float scale, cudaStream_t s) {
+                       float* map, int B, int H, int L, int ld, float scale, cudaStream_t s) {
   const int n = (L + kRows - 1) / kRows;
-  attn_map_kernel<DH><<<dim3(n, n, B), kThreads, 0, s>>>(q, k, kbias, stats, map, H, L, scale);
+  auto kern = attn_map_kernel<DH, PAD>;
+  int smem = 0;
+  const cudaError_t e = smem_bytes<MapSmem<DH>, (DH <= kMaxStaticDh)>(kern, &smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(n, n, B), kThreads, smem, s>>>(q, k, kbias, stats, map, H, L, ld, scale);
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, bool PAD, int PART>
+cudaError_t launch_dkdv(const bf* q, const bf* k, const bf* v, const bf* dout,
+                        const float* kbias, const float* stats, float* dk, float* dv, int B,
+                        int H, int Lq, int Lk, int ld, float scale, cudaStream_t s) {
+  auto kern = flash_bwd_dkdv_kernel<DH, PAD, PART>;
+  int smem = 0;
+  const cudaError_t e = smem_bytes<DkdvSmem<DH>, (DH <= kMaxStaticDh)>(kern, &smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3((Lk + kRows - 1) / kRows, B * H), kThreads, smem, s>>>(
+      q, k, v, dout, kbias, stats, dk, dv, H, Lq, Lk, ld, scale);
+  return cudaGetLastError();
+}
+
+template <int DH, bool PAD>
 cudaError_t launch_bwd(const bf* q, const bf* k, const bf* v, const bf* dout,
                        const float* kbias, float* dq, float* dk, float* dv, float* stats,
-                       int B, int H, int Lq, int Lk, float scale, cudaStream_t s) {
-  flash_bwd_dq_kernel<DH><<<dim3((Lq + kRows - 1) / kRows, B * H), kThreads, 0, s>>>(
-      q, k, v, dout, kbias, dq, stats, H, Lq, Lk, scale);
-  const cudaError_t e = cudaGetLastError();
+                       int B, int H, int Lq, int Lk, int ld, float scale, cudaStream_t s) {
+  auto kern = flash_bwd_dq_kernel<DH, PAD>;
+  int smem = 0;
+  cudaError_t e = smem_bytes<DqSmem<DH>, (DH <= kMaxStaticDh)>(kern, &smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_kernel<DH><<<dim3((Lk + kRows - 1) / kRows, B * H), kThreads, 0, s>>>(
-      q, k, v, dout, kbias, stats, dk, dv, H, Lq, Lk, scale);
-  return cudaGetLastError();
+  kern<<<dim3((Lq + kRows - 1) / kRows, B * H), kThreads, smem, s>>>(
+      q, k, v, dout, kbias, dq, stats, H, Lq, Lk, ld, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if constexpr (DH <= 64) {
+    return launch_dkdv<DH, PAD, kBoth>(q, k, v, dout, kbias, stats, dk, dv, B, H, Lq, Lk, ld,
+                                       scale, s);
+  } else {   // two 128-wide accumulators would spill: dK and dV in turn
+    e = launch_dkdv<DH, PAD, kOnlyDk>(q, k, v, dout, kbias, stats, dk, dv, B, H, Lq, Lk, ld,
+                                      scale, s);
+    if (e != cudaSuccess) return e;
+    return launch_dkdv<DH, PAD, kOnlyDv>(q, k, v, dout, kbias, stats, dk, dv, B, H, Lq, Lk,
+                                         ld, scale, s);
+  }
 }
 
 }  // namespace
 
-// K2 and K1's first launch, bf16: q (unscaled), k, v (B, H, L, Dh); kbias
-// (B, L rounded up to 64) fp32, -1e30 in the padding; out (B, H, L, Dh)
-// bf16; stats, null for K2, else (B, H, L, 2) fp32 for each row's (max,
-// 1/sum)
+// K2 and K1's first launch, bf16: q (unscaled), k, v (B, H, L, Dh), any Dh
+// in [1, 128]; kbias (B, L rounded up to 64) fp32, -1e30 in the padding;
+// out (B, H, L, Dh) bf16; stats, null for K2, else (B, H, L, 2) fp32 for
+// each row's (max, 1/sum)
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* kbias,
                          void* out, void* stats, int B, int H, int L, int Dh, float scale,
                          void* stream) {
@@ -680,9 +838,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
   const float* kb = static_cast<const float*>(kbias);
   bf* o = static_cast<bf*>(out);
   float* st = static_cast<float*>(stats);
-  if (Dh == 64) return launch_fwd<64>(c(q), c(k), c(v), kb, o, st, B, H, L, scale, s);
-  if (Dh == 32) return launch_fwd<32>(c(q), c(k), c(v), kb, o, st, B, H, L, scale, s);
-  return cudaErrorInvalidValue;
+#define F(DH, PAD) launch_fwd<DH, PAD>(c(q), c(k), c(v), kb, o, st, B, H, L, Dh, scale, s)
+  WECLIP_DISPATCH_DH(Dh, F);
+#undef F
 }
 
 // K1's second launch, bf16: q (unscaled), k (B, H, L, Dh); kbias as above;
@@ -694,9 +852,9 @@ extern "C" int attn_map(const void* q, const void* k, const void* kbias, const v
   const float* kb = static_cast<const float*>(kbias);
   const float* st = static_cast<const float*>(stats);
   float* m = static_cast<float*>(map);
-  if (Dh == 64) return launch_map<64>(c(q), c(k), kb, st, m, B, H, L, scale, s);
-  if (Dh == 32) return launch_map<32>(c(q), c(k), kb, st, m, B, H, L, scale, s);
-  return cudaErrorInvalidValue;
+#define F(DH, PAD) launch_map<DH, PAD>(c(q), c(k), kb, st, m, B, H, L, Dh, scale, s)
+  WECLIP_DISPATCH_DH(Dh, F);
+#undef F
 }
 
 // K3 / K3-rect, bf16: q (B, H, Lq, Dh), taken as bf16(q * scale); k, v
@@ -710,11 +868,9 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
   const auto c = [](const void* p) { return static_cast<const bf*>(p); };
   const auto m = [](void* p) { return static_cast<float*>(p); };
   const float* kb = static_cast<const float*>(kbias);
-  if (Dh == 64)
-    return launch_bwd<64>(c(q), c(k), c(v), c(dout), kb, m(dq), m(dk), m(dv), m(stats), B, H,
-                          Lq, Lk, scale, s);
-  if (Dh == 32)
-    return launch_bwd<32>(c(q), c(k), c(v), c(dout), kb, m(dq), m(dk), m(dv), m(stats), B, H,
-                          Lq, Lk, scale, s);
-  return cudaErrorInvalidValue;
+#define F(DH, PAD)                                                                        \
+  launch_bwd<DH, PAD>(c(q), c(k), c(v), c(dout), kb, m(dq), m(dk), m(dv), m(stats), B, H, \
+                      Lq, Lk, Dh, scale, s)
+  WECLIP_DISPATCH_DH(Dh, F);
+#undef F
 }

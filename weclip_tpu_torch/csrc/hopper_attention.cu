@@ -34,6 +34,20 @@
 // transpose bit (V is MN-major).  Rows past Lq and keys past Lk are
 // zero-filled by TMA; the padded bias masks those keys and the epilogue
 // skips those rows.
+//
+// Head widths.  The kernel is compiled at Dh 16, 32, 64 and 128 (DH), with
+// the swizzle of a DH-wide bf16 row (32-, 64- and 128-byte).  A 128-wide
+// row (256 bytes) is more than the 128-byte swizzle span, so each 64-row
+// tile is two 64-column TMA boxes, one after the other, S = q K^T takes 8
+// k-steps across both, and P V reads the two boxes of V as one N = 128
+// operand (the descriptor's leading offset steps from one box to the next;
+// at DH 128 one block fits an SM, so the accumulators get the registers of
+// one block).  A width Dh that is a multiple of 8 and not one of these
+// (PAD) runs the next one up: the tensor maps keep the true width, so TMA
+// fills the lanes d >= Dh of every box with zeros, which leave the scores
+// unchanged, and the epilogue writes the Dh true columns.  TMA needs the
+// global row stride to be a multiple of 16 bytes, so other widths are
+// refused here; the wrapper hands them over zero-padded to a multiple of 8.
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 
@@ -48,7 +62,7 @@ constexpr int kRows = 64 * kConsumers;             // query rows per block
 constexpr int kKeys = 64;                          // keys per staged tile
 constexpr int kStages = 3;                         // K/V tiles in flight
 constexpr int kThreads = 128 * kConsumers + 32;    // and one producer warp
-constexpr int kMinBlocks = 2;                      // blocks per SM the registers allow
+constexpr int kMinBlocks = 2;                      // blocks per SM the registers allow (DH <= 64)
 constexpr float kFloor = -5e29f;                   // the all-masked row guard of the max
 
 // shared memory (bytes from a 1024-aligned base): q rows, the K ring, the
@@ -57,6 +71,9 @@ constexpr float kFloor = -5e29f;                   // the all-masked row guard o
 template <int DH>
 struct Layout {
   static constexpr int kRowBytes = DH * 2;
+  static constexpr int kSpan = DH > 64 ? 64 : DH;        // columns of one TMA box
+  static constexpr int kBoxBytes = 64 * kSpan * 2;       // one box of 64 rows
+  static constexpr int kBoxes = DH / kSpan;              // boxes across a row
   static constexpr int kTile = kKeys * kRowBytes;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kRows * kRowBytes;
@@ -114,16 +131,25 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int byt
 }
 
 // wgmma shared-memory descriptor of a tile that TMA wrote with the
-// swizzle of a DH-wide bf16 row (128-byte for Dh 64, 64-byte for Dh 32).
-// Both byte offsets are the stride of 8-row groups: for a K-major operand
-// whose K extent fits one swizzle row the leading offset is unused, and an
-// MN-major operand (V) spans one swizzle row in N, so only the stride of
-// its 8-key groups is read.
+// swizzle of a box row (128-byte for Dh 64 and 128, 64-byte for Dh 32,
+// 32-byte for Dh 16).  The stride offset is that of 8-row groups.  The
+// leading offset is unused by a K-major operand (its 16-element K extent
+// lies in one swizzle row) and by an MN-major one (V) whose N fits one box
+// row; at Dh 128 V's N spans two boxes, and it is the offset between them.
 template <int DH>
 __device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  constexpr uint64_t kGroup = (8 * DH * 2) >> 4;
-  constexpr uint64_t kSwizzle = DH == 64 ? 1 : 2;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (kGroup << 16) | (kGroup << 32) | (kSwizzle << 62);
+  constexpr int kSpan = Layout<DH>::kSpan;
+  constexpr uint64_t kGroup = (8 * kSpan * 2) >> 4;
+  constexpr uint64_t kLead = DH > 64 ? Layout<DH>::kBoxBytes >> 4 : kGroup;
+  constexpr uint64_t kSwizzle = kSpan == 64 ? 1 : (kSpan == 32 ? 2 : 3);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (kLead << 16) | (kGroup << 32) | (kSwizzle << 62);
+}
+
+// byte offset of k-step kk (16 columns of Dh) in a staged 64-row tile
+template <int DH>
+__device__ __forceinline__ uint32_t kstep(int kk) {
+  constexpr int kSpan = Layout<DH>::kSpan;
+  return (kk * 16 / kSpan) * Layout<DH>::kBoxBytes + (kk * 16 % kSpan) * 2;
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -183,8 +209,50 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 128, fp32) += A (64 x 16, bf16 registers) B (16 x 128, shared
+// memory, MN-major: the descriptor's transpose bit)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 16, fp32) += A (64 x 16, bf16 registers) B (16 x 16, shared
+// memory, MN-major: the descriptor's transpose bit)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 template <int DH>
 __device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2], const uint32_t* a, uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64], const uint32_t* a, uint64_t b) {
+  wgmma_rs_n128(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<16>(float (&d)[8], const uint32_t* a, uint64_t b) {
+  wgmma_rs_n16(d, a, b);
+}
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&d)[32], const uint32_t* a, uint64_t b) {
   wgmma_rs_n64(d, a, b);
@@ -199,13 +267,14 @@ __device__ __forceinline__ void wgmma_pv<32>(float (&d)[16], const uint32_t* a, 
 // consumer warpgroups, warp 8 the producer
 // ---------------------------------------------------------------------------
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <int DH, bool PAD>
+__global__ void __launch_bounds__(kThreads, DH > 64 ? 1 : kMinBlocks)
 xattn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, const float* __restrict__ kbias,
-                       float* __restrict__ out, int H, int Lq, int Lk) {
+                       float* __restrict__ out, int H, int Lq, int Lk, int ld) {
   using S = Layout<DH>;
+  const int rw = PAD ? ld : DH;   // the row width in global memory
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -236,14 +305,20 @@ xattn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) {
       mbar_expect_tx(qbar, groups * 64 * S::kRowBytes);
       for (int i = 0; i < groups; ++i)
-        tma_load_3d(base + S::kQ + i * 64 * S::kRowBytes, &tq, qbar, 0, q0 + 64 * i, bh);
+        for (int x = 0; x < S::kBoxes; ++x)
+          tma_load_3d(base + S::kQ + i * 64 * S::kRowBytes + x * S::kBoxBytes, &tq, qbar,
+                      x * S::kSpan, q0 + 64 * i, bh);
       const float* bias = kbias + (size_t)b * ntiles * kKeys;
       for (int it = 0; it < ntiles; ++it) {
         const int s = it % kStages, round = it / kStages;
         if (round > 0) mbar_wait(empty(s), (round - 1) & 1);
         mbar_expect_tx(full(s), 2 * S::kTile + kKeys * 4);
-        tma_load_3d(base + S::kK + s * S::kTile, &tk, full(s), 0, it * kKeys, bh);
-        tma_load_3d(base + S::kV + s * S::kTile, &tv, full(s), 0, it * kKeys, bh);
+        for (int x = 0; x < S::kBoxes; ++x) {
+          tma_load_3d(base + S::kK + s * S::kTile + x * S::kBoxBytes, &tk, full(s),
+                      x * S::kSpan, it * kKeys, bh);
+          tma_load_3d(base + S::kV + s * S::kTile + x * S::kBoxBytes, &tv, full(s),
+                      x * S::kSpan, it * kKeys, bh);
+        }
         bulk_load(base + S::kBias + s * kKeys * 4, bias + it * kKeys, kKeys * 4, full(s));
       }
     }
@@ -268,7 +343,7 @@ xattn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk)   // 16 bf16 (32 bytes) of Dh per step
-      wgmma_ss_n64(sc, desc<DH>(qa + 32 * kk), desc<DH>(kt + 32 * kk), kk > 0);
+      wgmma_ss_n64(sc, desc<DH>(qa + kstep<DH>(kk)), desc<DH>(kt + kstep<DH>(kk)), kk > 0);
     wg_commit();
     wg_wait_all();
     fence_regs(sc);
@@ -313,7 +388,7 @@ xattn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wg_fence();
 #pragma unroll
     for (int c = 0; c < kKeys / 16; ++c)   // 16 keys (16 V rows) per step
-      wgmma_pv<DH>(o, pa + 4 * c, desc<DH>(vt + c * 16 * S::kRowBytes));
+      wgmma_pv<DH>(o, pa + 4 * c, desc<DH>(vt + c * 16 * S::kSpan * 2));
     wg_commit();
     wg_wait_all();
     fence_regs(o);
@@ -323,15 +398,16 @@ xattn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float r0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
   const float r1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
   const int row = q0 + 64 * wg + 16 * w + g;
-  float* ob = out + (size_t)bh * Lq * DH;
+  float* ob = out + (size_t)bh * Lq * rw;
 #pragma unroll
   for (int i = 0; i < DH / 8; ++i) {
     const int col = 8 * i + 2 * t;
+    if (PAD && col >= rw) continue;   // rw is a multiple of 8: col + 1 < rw too
     if (row < Lq)
-      *reinterpret_cast<float2*>(ob + (size_t)row * DH + col) =
+      *reinterpret_cast<float2*>(ob + (size_t)row * rw + col) =
           make_float2(o[4 * i] * r0, o[4 * i + 1] * r0);
     if (row + 8 < Lq)
-      *reinterpret_cast<float2*>(ob + (size_t)(row + 8) * DH + col) =
+      *reinterpret_cast<float2*>(ob + (size_t)(row + 8) * rw + col) =
           make_float2(o[4 * i + 2] * r1, o[4 * i + 3] * r1);
   }
 }
@@ -360,52 +436,62 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a (B * H, L, DH) bf16 array as a 3-D tensor map of 64-row boxes in the
-// swizzle wgmma reads; rows past L read as zeros
-bool tensor_map(CUtensorMap* map, const void* p, int DH, int L, int BH) {
-  const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)L, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)DH * 2, (cuuint64_t)L * DH * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)DH, 64, 1};
+// a (B * H, L, Dh) bf16 array as a 3-D tensor map of boxes of 64 rows and
+// `span` columns in the swizzle wgmma reads; rows past L and columns past
+// Dh read as zeros
+bool tensor_map(CUtensorMap* map, const void* p, int Dh, int span, int L, int BH) {
+  const cuuint64_t dims[3] = {(cuuint64_t)Dh, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)Dh * 2, (cuuint64_t)L * Dh * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)span, 64, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = span == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : span == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
   return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims, strides,
-                   box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                   DH == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                   box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH>
+template <int DH, bool PAD>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* kbias, float* out,
-                   int B, int H, int Lq, int Lk, cudaStream_t s) {
+                   int B, int H, int Lq, int Lk, int Dh, cudaStream_t s) {
   if (encoder() == nullptr) return cudaErrorNotSupported;
+  constexpr int span = Layout<DH>::kSpan;
   CUtensorMap mq, mk, mv;
-  if (!tensor_map(&mq, q, DH, Lq, B * H) || !tensor_map(&mk, k, DH, Lk, B * H) ||
-      !tensor_map(&mv, v, DH, Lk, B * H))
+  if (!tensor_map(&mq, q, Dh, span, Lq, B * H) || !tensor_map(&mk, k, Dh, span, Lk, B * H) ||
+      !tensor_map(&mv, v, Dh, span, Lk, B * H))
     return cudaErrorInvalidValue;
   constexpr int smem = Layout<DH>::kBytes + 1024;   // and room to align the base
   static bool sized = false;
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        xattn_fwd_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        xattn_fwd_wgmma_kernel<DH, PAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     sized = true;
   }
-  xattn_fwd_wgmma_kernel<DH><<<dim3((Lq + kRows - 1) / kRows, B * H), kThreads, smem, s>>>(
-      mq, mk, mv, kbias, out, H, Lq, Lk);
+  xattn_fwd_wgmma_kernel<DH, PAD><<<dim3((Lq + kRows - 1) / kRows, B * H), kThreads, smem, s>>>(
+      mq, mk, mv, kbias, out, H, Lq, Lk, Dh);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // K6, bf16: q (B, H, Lq, Dh) pre-scaled, k, v (B, H, Lk, Dh), all bf16,
-// 16-byte aligned; kbias (B, Lk rounded up to 64) fp32, -1e30 in the
-// padding; out (B, H, Lq, Dh) fp32
+// 16-byte aligned, Dh a multiple of 8 up to 128 (or 16); kbias (B, Lk
+// rounded up to 64) fp32, -1e30 in the padding; out (B, H, Lq, Dh) fp32
 extern "C" int xattn_fwd_wgmma(const void* q, const void* k, const void* v, const void* kbias,
                                void* out, int B, int H, int Lq, int Lk, int Dh, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* kb = static_cast<const float*>(kbias);
   float* o = static_cast<float*>(out);
-  if (Dh == 64) return launch<64>(q, k, v, kb, o, B, H, Lq, Lk, s);
-  if (Dh == 32) return launch<32>(q, k, v, kb, o, B, H, Lq, Lk, s);
-  return cudaErrorInvalidValue;
+  if (Dh == 64) return launch<64, false>(q, k, v, kb, o, B, H, Lq, Lk, Dh, s);
+  if (Dh == 32) return launch<32, false>(q, k, v, kb, o, B, H, Lq, Lk, Dh, s);
+  if (Dh == 16) return launch<16, false>(q, k, v, kb, o, B, H, Lq, Lk, Dh, s);
+  if (Dh == 128) return launch<128, false>(q, k, v, kb, o, B, H, Lq, Lk, Dh, s);
+  if (Dh < 8 || Dh > 128 || Dh % 8) return cudaErrorInvalidValue;
+  if (Dh < 16) return launch<16, true>(q, k, v, kb, o, B, H, Lq, Lk, Dh, s);
+  if (Dh < 32) return launch<32, true>(q, k, v, kb, o, B, H, Lq, Lk, Dh, s);
+  if (Dh < 64) return launch<64, true>(q, k, v, kb, o, B, H, Lq, Lk, Dh, s);
+  return launch<128, true>(q, k, v, kb, o, B, H, Lq, Lk, Dh, s);
 }

@@ -26,10 +26,11 @@
 // What bounds them on the H100 (eval: B = 8, 48 neighbours, 512 x 512):
 // K4 reads the 25 MB image and writes B*48*H*W fp32 (403 MB): bound by that
 // write (0.13 ms at 3.35 TB/s), written with 16-byte streaming stores.  An
-// 8 x 64 tile's 3 channels are staged once; the moments pass and the logits
-// pass (48 x 4 logits kept in registers for the max, exp, sum and
-// normalisation) read them.  Its divisions (by 3, by the sum) are a
-// reciprocal and one correction step, which round as the division does.
+// 8 x 64 tile's 3 channels are staged once; the moments sweep and two
+// logits sweeps (8 x 4 logits in registers at a time: the softmax's running
+// max and sum, then each weight) read them.  Its divisions (by 3, by the
+// sum) are a reciprocal and one correction step, which round as the
+// division does.
 // K5 must stream the 403 MB of affinities in every iteration: they cannot
 // stay on chip (50 MB of L2), so its floor is 20 x (403 + 2 x 42) MB at
 // 3.35 TB/s = 2.9 ms at the eval shape.  A block walks down a column of
@@ -43,6 +44,20 @@
 // balanced chunks and the affinities are read once per chunk.  The TPU
 // kernel's one-hot clamp matmul, rolls, halo pre-rotation and sorted-dy
 // neighbour order were TPU layout devices and are not carried over.
+//
+// Any dilation set.  A dilation d at least max(H, W) - 1 reads the clamped
+// edge in every direction, so the wrapper hands over min(d, max(H, W) - 1)
+// (at least 1): the same neighbours.  The staged window keeps its halo of
+// kHalo = 24 whatever the set, so the shared memory and K5's channel chunks
+// stay as they are; a dilation above 24 reads its neighbours through L2
+// from clamped coordinates (4 scalar loads a quad) instead of from the
+// staged rows.  K4 reads the dilations and the positional weights from
+// device memory.  K5 has two forms, which the wrapper picks per set: up to
+// kMaxDil = 6 dilations of at most 24 (PAR's shipped (1, 2, 4, 8, 12, 24)
+// on any image) run the packed form (par_propagate), the dilations packed 5
+// bits each into one argument; any other set the far form
+// (par_propagate_far), the dilations read from device memory.  At the
+// shipped set the packed form is 1-4% faster (PERF.md §6).
 
 #include <math_constants.h>
 
@@ -192,9 +207,9 @@ __device__ __forceinline__ void moments_group(float (&s1)[3][4], float (&s2)[3][
 }
 
 // logits of dilation d's 8 neighbours: the mean over RGB of -(|I_k - I| inv)^2
-template <int R, int N>
-__device__ __forceinline__ void logits_group(float (&logit)[N][4], int g, const float* s,
-                                             int d, const float (&c0)[3][4],
+template <int R>
+__device__ __forceinline__ void logits_group(float (&logit)[8][4], const float* s, int d,
+                                             const float (&c0)[3][4],
                                              const float (&inv)[3][4]) {
   const float* const rows[3] = {s - d * kPitch, s, s + d * kPitch};
 #pragma unroll
@@ -210,38 +225,46 @@ __device__ __forceinline__ void logits_group(float (&logit)[N][4], int g, const 
       }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) logit[g * 8 + o][j] = div_by(acc[j], 3.f, 1.f / 3.f);
+    for (int j = 0; j < 4; ++j) logit[o][j] = div_by(acc[j], 3.f, 1.f / 3.f);
   }
 }
 
-// the positional weights, passed by value: the kernel reads them as
-// constants, in no register and with no load
-struct PosWeights {
-  float w[8 * kMaxDil];
-};
+// neighbour o of dilation d for the 4 pixels (y, x..x+3) of plane p, read
+// through L2 from clamped coordinates (dilations above kHalo)
+__device__ __forceinline__ float4 far_quad(const float* __restrict__ p, int o, int d, int y,
+                                           int x, int H, int W) {
+  const float* row = p + (size_t)clampi(y + dy_of(o) * d, 0, H - 1) * W;
+  const int x0 = x + dx_of(o) * d;
+  return make_float4(__ldg(row + clampi(x0, 0, W - 1)), __ldg(row + clampi(x0 + 1, 0, W - 1)),
+                     __ldg(row + clampi(x0 + 2, 0, W - 1)), __ldg(row + clampi(x0 + 3, 0, W - 1)));
+}
 
-// K4: per pixel, one-pass moments over the N neighbours (unbiased std),
+// K4: per pixel, one-pass moments over the 8n neighbours (unbiased std),
 // appearance logits averaged over RGB, softmax over the neighbours, plus
-// the host-computed positional weights.  One block per 8 x 64 tile.
-template <int N>
+// the host-computed positional weights posw; n dilations dils, each at
+// most kHalo read from the staged rows, larger ones through L2.  8 logits
+// a pixel are held at a time: two sweeps over the dilations, the first for
+// the softmax's running max and sum, the second recomputing each
+// dilation's logits to write its weights.  One block per 8 x 64 tile.
 __global__ void __launch_bounds__(kAffRows * kQuads)
 par_affinity_kernel(const float* __restrict__ img, float* __restrict__ aff,
-                    PosWeights posw, int dpack, int H, int W, float w1,
-                    bool vec_in, bool vec_out) {
+                    const float* __restrict__ posw, const int* __restrict__ dils, int n_dil,
+                    int H, int W, float w1, bool vec_in, bool vec_out) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int tx = threadIdx.x % kQuads, ty = threadIdx.x / kQuads;
   const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kAffRows, b = blockIdx.z;
   const int x = x0 + 4 * tx, y = y0 + ty;
   const size_t plane = (size_t)H * W;
+  const float* img_b = img + (size_t)b * 3 * plane;
   constexpr int kRows = kAffRows + 2 * kHalo;
-  stage_rows<kRows, kAffRows * kQuads>(sm, img + (size_t)b * 3 * plane, 3, y0 - kHalo, 0,
-                                       kRows, x0, H, W, vec_in);
+  stage_rows<kRows, kAffRows * kQuads>(sm, img_b, 3, y0 - kHalo, 0, kRows, x0, H, W, vec_in);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
   if (y >= H) return;
   const float* s = sm + (ty + kHalo) * kPitch + kHalo + 4 * tx;
+  const int n = 8 * n_dil;
 
   float c0[3][4], s1[3][4], s2[3][4];
 #pragma unroll
@@ -254,8 +277,22 @@ par_affinity_kernel(const float* __restrict__ img, float* __restrict__ aff,
       s2[c][j] = 0.f;
     }
   }
-  for (int g = 0; g < N / 8; ++g) {
-    const int d = dil_of(dpack, g);
+  for (int g = 0; g < n_dil; ++g) {
+    const int d = dils[g];
+    if (d > kHalo) {
+#pragma unroll
+      for (int o = 0; o < 8; ++o)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float4 v = far_quad(img_b + c * plane, o, d, y, x, H, W);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s1[c][j] += comp(v, j);
+            s2[c][j] += comp(v, j) * comp(v, j);
+          }
+        }
+      continue;
+    }
     switch (d & 3) {
       case 0: moments_group<0>(s1, s2, s, d); break;
       case 1: moments_group<1>(s1, s2, s, d); break;
@@ -268,51 +305,76 @@ par_affinity_kernel(const float* __restrict__ img, float* __restrict__ aff,
   for (int c = 0; c < 3; ++c)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float mean = s1[c][j] / (float)N;
-      const float var =
-          fmaxf((s2[c][j] - (float)N * mean * mean) / (float)(N - 1), 0.f);
+      const float mean = s1[c][j] / (float)n;
+      const float var = fmaxf((s2[c][j] - (float)n * mean * mean) / (float)(n - 1), 0.f);
       inv[c][j] = 1.f / ((sqrtf(var) + 1e-8f) * w1);
     }
-  float logit[N][4];
+  // the 8 logits of group g, from the staged rows or through L2
+  float logit[8][4];
+  const auto group_logits = [&](int g) {
+    const int d = dils[g];
+    if (d > kHalo) {
 #pragma unroll
-  for (int g = 0; g < N / 8; ++g) {
-    const int d = dil_of(dpack, g);
-    switch (d & 3) {
-      case 0: logits_group<0>(logit, g, s, d, c0, inv); break;
-      case 1: logits_group<1>(logit, g, s, d, c0, inv); break;
-      case 2: logits_group<2>(logit, g, s, d, c0, inv); break;
-      default: logits_group<3>(logit, g, s, d, c0, inv); break;
+      for (int o = 0; o < 8; ++o) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float4 v = far_quad(img_b + c * plane, o, d, y, x, H, W);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float t = fabsf(comp(v, j) - c0[c][j]) * inv[c][j];
+            acc[j] += -(t * t);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) logit[o][j] = div_by(acc[j], 3.f, 1.f / 3.f);
+      }
+      return;
     }
-  }
+    switch (d & 3) {
+      case 0: logits_group<0>(logit, s, d, c0, inv); break;
+      case 1: logits_group<1>(logit, s, d, c0, inv); break;
+      case 2: logits_group<2>(logit, s, d, c0, inv); break;
+      default: logits_group<3>(logit, s, d, c0, inv); break;
+    }
+  };
+  // pass 1: the softmax's max and sum over all groups, online
   float mx[4], sum[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     mx[j] = -CUDART_INF_F;
     sum[j] = 0.f;
   }
-#pragma unroll
-  for (int k = 0; k < N; ++k)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) mx[j] = fmaxf(mx[j], logit[k][j]);
-#pragma unroll
-  for (int k = 0; k < N; ++k)
+  for (int g = 0; g < n_dil; ++g) {
+    group_logits(g);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      logit[k][j] = expf(logit[k][j] - mx[j]);
-      sum[j] += logit[k][j];
+      float m = mx[j];
+#pragma unroll
+      for (int o = 0; o < 8; ++o) m = fmaxf(m, logit[o][j]);
+      float e = 0.f;
+#pragma unroll
+      for (int o = 0; o < 8; ++o) e += expf(logit[o][j] - m);
+      sum[j] = sum[j] * expf(mx[j] - m) + e;
+      mx[j] = m;
     }
+  }
   float rsum[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) rsum[j] = 1.f / sum[j];
-  float* out = aff + (size_t)b * N * plane + (size_t)y * W + x;
+  // pass 2: each group's logits again, normalized, plus the positional term
+  float* out = aff + (size_t)b * n * plane + (size_t)y * W + x;
+  for (int g = 0; g < n_dil; ++g) {
+    group_logits(g);
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const float pk = posw.w[k];
-    const float4 v = make_float4(div_by(logit[k][0], sum[0], rsum[0]) + pk,
-                                 div_by(logit[k][1], sum[1], rsum[1]) + pk,
-                                 div_by(logit[k][2], sum[2], rsum[2]) + pk,
-                                 div_by(logit[k][3], sum[3], rsum[3]) + pk);
-    store_quad<true>(out + k * plane, v, x, W, vec_out);
+    for (int o = 0; o < 8; ++o) {
+      const int k = 8 * g + o;
+      const float pk = posw[k];
+      float e[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) e[j] = div_by(expf(logit[o][j] - mx[j]), sum[j], rsum[j]) + pk;
+      store_quad<true>(out + k * plane, make_float4(e[0], e[1], e[2], e[3]), x, W, vec_out);
+    }
   }
 }
 
@@ -362,15 +424,39 @@ __device__ __forceinline__ void load_group(float4 (&a)[8], const float* aff_b, i
   for (int o = 0; o < 8; ++o) a[o] = load_quad_cs(p + o * plane, x, W, ok, vec);
 }
 
+// acc[c] += aff_k * (neighbour k of channel c) for dilation d's 8
+// neighbours, read through L2 from clamped coordinates (dilations above
+// kHalo, in the far form)
+template <int CC>
+__device__ __forceinline__ void propagate_far(float (&acc)[CC][4], const float4 (&a)[8],
+                                              const float* __restrict__ src_c, size_t plane,
+                                              int d, int y, int x, int H, int W, int nc) {
+#pragma unroll
+  for (int c = 0; c < CC; ++c)
+    if (c < nc) {
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+        const float4 v = far_quad(src_c + c * plane, o, d, y, x, H, W);
+        acc[c][0] = fmaf(v.x, a[o].x, acc[c][0]);
+        acc[c][1] = fmaf(v.y, a[o].y, acc[c][1]);
+        acc[c][2] = fmaf(v.z, a[o].z, acc[c][2]);
+        acc[c][3] = fmaf(v.w, a[o].w, acc[c][3]);
+      }
+    }
+}
+
 // K5, one Jacobi step: dst[c] = sum_k aff_k * src[c] at the clamped k-th
 // neighbour, summed in k order, for every channel c of 4 pixels.  Block
 // (column, segment, image) walks the segment's tiles; channels go in chunks
-// of CC (the last may hold fewer), each chunk one walk.
-template <int CC>
+// of CC (the last may hold fewer), each chunk one walk.  FAR: the far form
+// (dilations from `dils`, those above kHalo read through L2); else they are
+// unpacked from `dpack`.
+template <int CC, bool FAR>
 __global__ void __launch_bounds__(kPropRows * kQuads, 1)
 par_propagate_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                     const float* __restrict__ aff, int dpack, int n_dil, int C, int H,
-                     int W, bool vec) {
+                     const float* __restrict__ aff, int dpack,
+                     const int* __restrict__ dils, int n_dil, int C, int H, int W,
+                     bool vec) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   constexpr int kThreads = kPropRows * kQuads;
@@ -417,7 +503,16 @@ par_propagate_kernel(const float* __restrict__ src, float* __restrict__ dst,
           ++t2;
         }
         load_group(far, aff_b, t2, g2, t_end, ty, x, H, W, plane, vec);
-        const int d = dil_of(dpack, g);
+        const int d = FAR ? dils[g] : dil_of(dpack, g);
+        if (FAR && d > kHalo) {
+          propagate_far(acc, cur, src_c, plane, d, t * kPropRows + ty, x, H, W, nc);
+#pragma unroll
+          for (int o = 0; o < 8; ++o) {
+            cur[o] = nxt[o];
+            nxt[o] = far[o];
+          }
+          continue;
+        }
         int up = mid - d, down = mid + d;
         if (up < 0) up += kRing;
         if (down >= kRing) down -= kRing;
@@ -461,7 +556,8 @@ cudaError_t allow_smem(Kernel kern, int bytes) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// the dilations packed 5 bits each, or -1 if the kernels do not take them
+// the dilations packed 5 bits each, or -1 if the packed form does not take
+// them (more than kMaxDil, or one outside [1, kHalo])
 int pack_dilations(const int* dil, int n_dil) {
   if (n_dil < 1 || n_dil > kMaxDil) return -1;
   int pack = 0;
@@ -472,28 +568,15 @@ int pack_dilations(const int* dil, int n_dil) {
   return pack;
 }
 
-template <int N>
-cudaError_t launch_affinity(const float* img, float* aff, const PosWeights& posw, int dpack,
-                            int B, int H, int W, float w1, bool vec_in, bool vec_out,
-                            cudaStream_t s) {
-  const int smem = 3 * kAffPW * (int)sizeof(float);
-  const cudaError_t e = allow_smem(par_affinity_kernel<N>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kAffRows - 1) / kAffRows, B);
-  par_affinity_kernel<N><<<grid, kAffRows * kQuads, smem, s>>>(img, aff, posw, dpack, H, W,
-                                                               w1, vec_in, vec_out);
-  return cudaGetLastError();
-}
-
 // `num_iter` launches; iteration 0 reads src, and the buffers alternate so
 // that the last iteration writes dst (tmp is scratch, unused at 1 iteration).
 // Each tile column is cut into as many segments as leave one block per SM.
-template <int CC>
+template <int CC, bool FAR>
 cudaError_t launch_propagate(const float* src, float* dst, float* tmp, const float* aff,
-                             int dpack, int n_dil, int B, int C, int H, int W,
+                             int dpack, const int* dils, int n_dil, int B, int C, int H, int W,
                              int num_iter, bool vec, cudaStream_t s) {
   const int smem = CC * kRingPW * (int)sizeof(float);
-  cudaError_t e = allow_smem(par_propagate_kernel<CC>, smem);
+  cudaError_t e = allow_smem(par_propagate_kernel<CC, FAR>, smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
@@ -505,45 +588,22 @@ cudaError_t launch_propagate(const float* src, float* dst, float* tmp, const flo
   const float* in = src;
   for (int it = 0; it < num_iter; ++it) {
     float* out = (num_iter - 1 - it) % 2 == 0 ? dst : tmp;
-    par_propagate_kernel<CC><<<grid, kPropRows * kQuads, smem, s>>>(in, out, aff, dpack,
-                                                                    n_dil, C, H, W, vec);
+    par_propagate_kernel<CC, FAR><<<grid, kPropRows * kQuads, smem, s>>>(
+        in, out, aff, dpack, dils, n_dil, C, H, W, vec);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     in = out;
   }
   return cudaSuccess;
 }
 
-}  // namespace
-
-// posw: the 8 * n_dil positional weights, in host memory
-extern "C" int par_affinity(const void* img, void* aff, const void* posw, int B,
-                            int H, int W, const void* dilations, int n_dil,
-                            float w1, void* stream) {
-  const int dpack = pack_dilations(static_cast<const int*>(dilations), n_dil);
-  if (dpack < 0 || B < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
-  const float* i = static_cast<const float*>(img);
-  float* a = static_cast<float*>(aff);
-  PosWeights p{};
-  for (int k = 0; k < 8 * n_dil; ++k) p.w[k] = static_cast<const float*>(posw)[k];
-  const bool vec_in = W % 4 == 0 && aligned16(i), vec_out = W % 4 == 0 && aligned16(a);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_dil) {
-    case 1: return launch_affinity<8>(i, a, p, dpack, B, H, W, w1, vec_in, vec_out, s);
-    case 2: return launch_affinity<16>(i, a, p, dpack, B, H, W, w1, vec_in, vec_out, s);
-    case 3: return launch_affinity<24>(i, a, p, dpack, B, H, W, w1, vec_in, vec_out, s);
-    case 4: return launch_affinity<32>(i, a, p, dpack, B, H, W, w1, vec_in, vec_out, s);
-    case 5: return launch_affinity<40>(i, a, p, dpack, B, H, W, w1, vec_in, vec_out, s);
-    default: return launch_affinity<48>(i, a, p, dpack, B, H, W, w1, vec_in, vec_out, s);
-  }
-}
-
 // num_iter Jacobi iterations from src (left untouched) into dst; tmp is a
-// second buffer of src's size, needed when num_iter > 1
-extern "C" int par_propagate(const void* src, void* dst, void* tmp, const void* aff,
-                             int B, int C, int H, int W, const void* dilations,
-                             int n_dil, int num_iter, void* stream) {
-  const int dpack = pack_dilations(static_cast<const int*>(dilations), n_dil);
-  if (dpack < 0 || C < 1 || B < 1 || H < 1 || W < 1 || num_iter < 0 ||
+// second buffer of src's size, needed when num_iter > 1.  FAR: the far
+// form, the dilations read from `dils` (device); else the packed `dpack`.
+template <bool FAR>
+cudaError_t propagate(const void* src, void* dst, void* tmp, const void* aff, int B, int C,
+                      int H, int W, int dpack, const int* dils, int n_dil, int num_iter,
+                      void* stream) {
+  if (n_dil < 1 || C < 1 || B < 1 || H < 1 || W < 1 || num_iter < 0 ||
       (num_iter > 1 && tmp == nullptr))
     return cudaErrorInvalidValue;
   const float* i = static_cast<const float*>(src);
@@ -556,15 +616,56 @@ extern "C" int par_propagate(const void* src, void* dst, void* tmp, const void* 
   // balanced chunks of at most kMaxChunk channels
   const int chunks = (C + kMaxChunk - 1) / kMaxChunk, cc = (C + chunks - 1) / chunks;
 #define PAR_PROPAGATE(CC) \
-  case CC: return launch_propagate<CC>(i, o, t, a, dpack, n_dil, B, C, H, W, num_iter, vec, s)
+  case CC: return launch_propagate<CC, FAR>(i, o, t, a, dpack, dils, n_dil, B, C, H, W, \
+                                            num_iter, vec, s)
   switch (cc) {
     PAR_PROPAGATE(1);
     PAR_PROPAGATE(2);
     PAR_PROPAGATE(3);
     PAR_PROPAGATE(4);
     PAR_PROPAGATE(5);
-    default: return launch_propagate<kMaxChunk>(i, o, t, a, dpack, n_dil, B, C, H, W,
-                                                num_iter, vec, s);
+    default: return launch_propagate<kMaxChunk, FAR>(i, o, t, a, dpack, dils, n_dil, B, C, H,
+                                                     W, num_iter, vec, s);
   }
 #undef PAR_PROPAGATE
+}
+
+}  // namespace
+
+// K4, any set: dils, the n_dil dilations, and posw, the 8 * n_dil
+// positional weights, both in device memory; each dilation in [1,
+// max(H, W) - 1] (the wrapper clamps them; not checked here)
+extern "C" int par_affinity(const void* img, void* aff, const void* posw, int B, int H, int W,
+                            const void* dils, int n_dil, float w1, void* stream) {
+  if (n_dil < 1 || B < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
+  const float* i = static_cast<const float*>(img);
+  float* a = static_cast<float*>(aff);
+  const bool vec_in = W % 4 == 0 && aligned16(i), vec_out = W % 4 == 0 && aligned16(a);
+  const int smem = 3 * kAffPW * (int)sizeof(float);
+  const cudaError_t e = allow_smem(par_affinity_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kAffRows - 1) / kAffRows, B);
+  par_affinity_kernel<<<grid, kAffRows * kQuads, smem, static_cast<cudaStream_t>(stream)>>>(
+      i, a, static_cast<const float*>(posw), static_cast<const int*>(dils), n_dil, H, W, w1,
+      vec_in, vec_out);
+  return cudaGetLastError();
+}
+
+// K5 in the packed form: at most kMaxDil dilations in [1, kHalo], in host
+// memory
+extern "C" int par_propagate(const void* src, void* dst, void* tmp, const void* aff,
+                             int B, int C, int H, int W, const void* dilations,
+                             int n_dil, int num_iter, void* stream) {
+  const int dpack = pack_dilations(static_cast<const int*>(dilations), n_dil);
+  if (dpack < 0) return cudaErrorInvalidValue;
+  return propagate<false>(src, dst, tmp, aff, B, C, H, W, dpack, nullptr, n_dil, num_iter,
+                          stream);
+}
+
+// K5 in the far form, any set (dils as for par_affinity)
+extern "C" int par_propagate_far(const void* src, void* dst, void* tmp, const void* aff,
+                                 int B, int C, int H, int W, const void* dils, int n_dil,
+                                 int num_iter, void* stream) {
+  return propagate<true>(src, dst, tmp, aff, B, C, H, W, 0, static_cast<const int*>(dils),
+                         n_dil, num_iter, stream);
 }

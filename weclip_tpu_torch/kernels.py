@@ -36,8 +36,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every function returns the cudaError_t of its launches
 SIGNATURES = {
     "attention": {
-        # fp32 q, k, v, kbias, out, map, B, H, L, Dh, scale, stream
-        "attn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        # fp32 q (pre-scaled), k, kbias, stats (from xattn_fwd), map, B, H,
+        # L, Dh, stream
+        "attn_map_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "flash_attention": {
         # bf16 q, k, v, kbias (padded to 64 keys), out, stats (or None), B,
@@ -56,20 +57,23 @@ SIGNATURES = {
         "xattn_fwd_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "cross_attention": {
-        # fp32 q (pre-scaled), k, v, kbias, out, B, H, Lq, Lk, Dh, stream
-        "xattn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # fp32 q (pre-scaled), k, v, kbias, out, stats (or None), B, H, Lq,
+        # Lk, Dh, stream
+        "xattn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         # fp32 q(pre-scaled), k, v, do, kbias, dq, dk, dv, stats, B, H, Lq,
         # Lk, Dh, stream
         "xattn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _P],
     },
     "par": {
-        # img, aff, posw (host memory: the C side copies the 8 * n_dil
-        # floats into the kernel's arguments), B, H, W, dilations, n_dil,
-        # w1, stream
+        # img, aff, posw (device: the 8 * n_dil positional weights), B, H,
+        # W, dilations (device), n_dil, w1, stream
         "par_affinity": [_P, _P, _P, _I, _I, _I, _P, _I, _F, _P],
-        # src, dst, tmp, aff, B, C, H, W, dilations, n_dil, num_iter, stream
+        # src, dst, tmp, aff, B, C, H, W, dilations (host), n_dil,
+        # num_iter, stream
         "par_propagate": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
+        # the far form: the same, dilations in device memory
+        "par_propagate_far": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
     },
     "crf": {
         # fp32 q (or None when C == 0), img, acc, norm, B, C, hs, ws, r,

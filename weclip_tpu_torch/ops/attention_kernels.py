@@ -20,11 +20,18 @@ over the heads, ``attention_row_stats_plain`` and ``attention_map_plain``
 being the two launches' plain versions; K3 reads bf16 q, k, v and dO as they
 come and scales q as it stages it); K6 ``csrc/hopper_attention.cu``
 (``wgmma`` products on TMA-loaded tiles).  Under fp32 (FMA loops, for the
-fp32 policy's parity checks): K1 ``csrc/attention.cu`` (whole score rows in
-shared memory, which bound L); K2, K6 and the backward
-``csrc/cross_attention.cu``.  The TPU stream padding
-(``stream_pad_len``/``pad_stream``, and CoMer's 128-multiples) is not
-ported: the kernels run at the true sequence lengths.
+fp32 policy's parity checks): K2, K6, the backward and K1's forward
+``csrc/cross_attention.cu``, K1's map ``csrc/attention.cu``; any L.  The
+TPU stream padding (``stream_pad_len``/``pad_stream``, and CoMer's
+128-multiples) is not ported: the kernels run at the true sequence lengths.
+
+Every kernel takes any head width Dh from 1 to ``MAX_HEAD_DIM``: the C
+side runs Dh 16, 32, 64 and 128 as compiled instances and a width between
+them on the next one up, with zeros in the lanes past Dh.  K6 under bf16
+reads its tiles by TMA, which needs rows of a multiple of 16 bytes, so
+there a width that is not a multiple of 8 is handed over zero-padded to
+the next multiple of 8 (a copy of q, k and v, part of the wrapper's time).
+A wider head raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -37,6 +44,15 @@ import torch
 from weclip_tpu_torch import kernels
 from weclip_tpu_torch.core import precision
 from weclip_tpu_torch.ops.attention import MhaParams, qkv_project
+
+# the widest head the kernels take (csrc: WECLIP_DISPATCH_DH)
+MAX_HEAD_DIM = 128
+
+
+def _check_head_dim(name: str, dh: int) -> None:
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {dh} is outside 1..{MAX_HEAD_DIM}, "
+                         f"the widths the kernels take")
 
 
 def _key_bias(kmask: torch.Tensor) -> torch.Tensor:
@@ -125,15 +141,12 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    stats: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K1 (``export_weights=True``) / K2 on CUDA; the plain version on CPU.
-    Under bf16 both take any L, and K1 is two launches: K2's forward with
-    each row's (max, 1/sum) written out, then the map kernel.  ``stats``, a
-    (B, H, L, 2) fp32 CUDA buffer, receives those statistics (bf16 K1 only).
-    Under fp32, K1 keeps whole score rows in shared memory, which bounds L
-    (about 1650): the C side reports a longer L as a CUDA error, which
-    ``kernels.call`` raises."""
-    if stats is not None and not (q.is_cuda and export_weights
-                                  and q.dtype == torch.bfloat16):
-        raise ValueError("attention_core: stats are written by the bf16 K1 on CUDA only")
+    Both take any L and any head width up to ``MAX_HEAD_DIM``.  K1 is two
+    launches: a key-tiled forward that writes each row's (max, 1/sum), then
+    the map kernel, which sums P over the heads from them.  ``stats``, a
+    (B, H, L, 2) fp32 CUDA buffer, receives those statistics (K1 only)."""
+    if stats is not None and not (q.is_cuda and export_weights):
+        raise ValueError("attention_core: stats are written by K1 on CUDA only")
     if not q.is_cuda:
         return attention_core_plain(q, k, v, kmask, export_weights)
     _check_cuda("attention_core", kmask, q, k, v)
@@ -144,23 +157,22 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("attention_core: q, k, v must share shape and dtype")
     if tuple(kmask.shape) != (b, l):
         raise ValueError(f"attention_core: kmask {tuple(kmask.shape)} != {(b, l)}")
-    if dh not in (32, 64):
-        raise ValueError(f"attention_core: head dim {dh} not in (32, 64)")
+    _check_head_dim("attention_core", dh)
     out = torch.empty_like(q)
     amap = (torch.empty((b, l, l), device=q.device, dtype=torch.float32)
             if export_weights else None)
     scale, bf16 = dh ** -0.5, q.dtype == torch.bfloat16
     c_scale = ctypes.c_float(scale)
+    if export_weights and stats is None:
+        stats = torch.empty((b, h, l, 2), device=q.device, dtype=torch.float32)
+    elif stats is not None and (
+            tuple(stats.shape) != (b, h, l, 2) or stats.dtype != torch.float32
+            or stats.device != q.device or not stats.is_contiguous()):
+        raise ValueError("attention_core: stats must be a contiguous "
+                         "(B, H, L, 2) fp32 tensor on q's device")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if bf16:
-            if export_weights and stats is None:
-                stats = torch.empty((b, h, l, 2), device=q.device, dtype=torch.float32)
-            elif stats is not None and (
-                    tuple(stats.shape) != (b, h, l, 2) or stats.dtype != torch.float32
-                    or stats.device != q.device or not stats.is_contiguous()):
-                raise ValueError("attention_core: stats must be a contiguous "
-                                 "(B, H, L, 2) fp32 tensor on q's device")
             bias = _padded_key_bias(kmask)
             kernels.call("flash_attention", "flash_fwd", q.data_ptr(), k.data_ptr(),
                          v.data_ptr(), bias.data_ptr(), out.data_ptr(),
@@ -170,18 +182,19 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kernels.call("flash_attention", "attn_map", q.data_ptr(), k.data_ptr(),
                              bias.data_ptr(), stats.data_ptr(), amap.data_ptr(), b, h,
                              l, dh, c_scale, stream)
-        elif export_weights:
-            bias = _key_bias(kmask).contiguous()
-            kernels.call("attention", "attn_fwd", q.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                         amap.data_ptr(), b, h, l, dh, c_scale, stream)
         else:
-            # the FMA forward K6 runs under fp32, on the pre-scaled q
+            # the FMA forward K6 runs under fp32, on the pre-scaled q; K1
+            # then sums the map from its row statistics on the same q
             qs = q * scale
             bias = _key_bias(kmask).contiguous()
             kernels.call("cross_attention", "xattn_fwd", qs.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, l, l,
+                         v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                         None if stats is None else stats.data_ptr(), b, h, l, l,
                          dh, stream)
+            if export_weights:
+                kernels.call("attention", "attn_map_f32", qs.data_ptr(), k.data_ptr(),
+                             bias.data_ptr(), stats.data_ptr(), amap.data_ptr(), b, h,
+                             l, dh, stream)
     kernels.launches["attention_fwd_export" if export_weights else "attention_fwd"] += 1
     return out, amap
 
@@ -242,8 +255,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "k, v (B, H, Lk, Dh)")
     if tuple(kmask.shape) != (b, lk):
         raise ValueError(f"attention_bwd: kmask {tuple(kmask.shape)} != {(b, lk)}")
-    if dh not in (32, 64):
-        raise ValueError(f"attention_bwd: head dim {dh} not in (32, 64)")
+    _check_head_dim("attention_bwd", dh)
     if score_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attention_bwd: unsupported score dtype {score_dtype}")
     dq = torch.empty(q.shape, device=q.device, dtype=torch.float32)
@@ -314,21 +326,26 @@ def cross_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "k, v (B, H, Lk, Dh)")
     if tuple(kmask.shape) != (b, lk):
         raise ValueError(f"cross_attention_core: kmask {tuple(kmask.shape)} != {(b, lk)}")
-    if dh not in (32, 64):
-        raise ValueError(f"cross_attention_core: head dim {dh} not in (32, 64)")
-    out = torch.empty(q.shape, device=q.device, dtype=torch.float32)
+    _check_head_dim("cross_attention_core", dh)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if q.dtype == torch.bfloat16:
             bias = _padded_key_bias(kmask)
+            pad = -dh % 8   # TMA: rows of a multiple of 16 bytes
+            if pad:
+                q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+            out = torch.empty(q.shape, device=q.device, dtype=torch.float32)
             kernels.call("hopper_attention", "xattn_fwd_wgmma", q.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, lq, lk, dh,
-                         stream)
+                         v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, lq, lk,
+                         dh + pad, stream)
+            if pad:
+                out = out[..., :dh].contiguous()
         else:
+            out = torch.empty(q.shape, device=q.device, dtype=torch.float32)
             bias = _key_bias(kmask).contiguous()
             kernels.call("cross_attention", "xattn_fwd", q.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, lq, lk, dh,
-                         stream)
+                         v.data_ptr(), bias.data_ptr(), out.data_ptr(), None, b, h, lq, lk,
+                         dh, stream)
     kernels.launches["cross_attention"] += 1
     return out
 
