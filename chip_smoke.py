@@ -20,7 +20,8 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
    version, a PyTorch library call where one computes the same function
    (SDPA at every K2, K3, K3-rect and K6 shape), and the least time the
    card could take (``bound_ms``); then every attention kernel at head
-   widths 8, 20, 48, 80 and 128 in bf16 and fp32, forward and backward, the
+   widths 8, 20, 48, 80, 128, 160, 256 and 320 in bf16 and fp32, forward
+   and backward, the
    fp32 K1 at L 2048 and 4096, and K4/K5 at dilation sets past the shipped
    one ((1, 2, 4, 8, 12, 24, 32, 48), (5,), (1, 2, 64)) on a 20 x 28 image
    and the eval canvas, each checked, timed and bounded the same way
@@ -114,9 +115,11 @@ import time
 
 import numpy as np
 
-# published peaks of one H100 SXM (dense): bytes/s of HBM3, FLOP/s
+# published peaks of one H100 SXM (dense): bytes/s of HBM3, FLOP/s.  The
+# fp32 attention kernels take each product as three TF32 tensor-core
+# products (csrc/cross_attention.cu): their rate is a third of TF32's
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "tf32x3": 494.7e12 / 3}
 VOC_SIZES = [(375, 500), (500, 375), (333, 500), (500, 500)]
 
 
@@ -223,8 +226,8 @@ def k3_accumulation_probe(qs, k, v, do):
     dP = dO V^T.  With one valid key j per image, P is one-hot, so the row
     statistics the kernel writes are that key's S (row max) and dP (delta,
     a sum whose other terms are exactly 0).  Returns, for S and dP, the
-    error against float64 of the tensor-core kernel, the fp32 FMA kernel
-    and cuBLAS fp32: max |err| / max |value|, mean |err| / mean |value|, and
+    error against float64 of the bf16 tensor-core kernel, the fp32 kernel
+    (three TF32 tensor-core products) and cuBLAS fp32: max |err| / max |value|, mean |err| / mean |value|, and
     the mean of err * sign(value) / mean |value| (negative: toward zero)."""
     import torch
     from weclip_tpu_torch.ops import attention_kernels as ak
@@ -242,7 +245,7 @@ def k3_accumulation_probe(qs, k, v, do):
                        -1, keys[:, None, None, None].expand(b, h, l, 1))[..., 0],
                    (do_ @ torch.gather(v_, 2, sel).transpose(-1, -2))[..., 0])
     got = {"cublas": ref[torch.float32]}
-    for route, dt in (("mma", bf), ("fma", torch.float32)):
+    for route, dt in (("mma", bf), ("tf32x3", torch.float32)):
         st = torch.empty((b, h, l, 3), device="cuda")
         ak.attention_bwd(*ops, km, dt, stats=st)
         got[route] = (st[..., 0], st[..., 2])
@@ -504,6 +507,7 @@ def check_kernels(reps: int = 10):
     # K2 at its five path shapes, each timed beside SDPA with the same
     # boolean key mask; then once past K1's whole-row limit, untimed
     checks, ms_by_shape, sdpa_by_shape, first = [], {}, {}, None
+    plain_by_shape, bound_by_shape = {}, {}
     for (b, h, l, dh, canvas, cls) in K2_SHAPES:
         dtype = bf if dh == 64 else torch.float32
         q, k, v = qkv(b, h, l, dh, gen, dtype)
@@ -516,6 +520,12 @@ def check_kernels(reps: int = 10):
         what = f"{[b, h, l, dh]} {str(dtype)[6:]}"
         checks.append(output_check(f"out {what}", out, ref))
         ms_by_shape[what], sdpa_by_shape[what] = k2_times(q, k, v, km, reps)
+        plain_by_shape[what] = cuda_ms(
+            lambda: ak.attention_core_plain(q, k, v, km, False), reps)
+        sz = 2 if dtype == bf else 4
+        bound_by_shape[what] = bound_ms(4 * b * h * l * dh * sz + b * l * 4,
+                                        4 * b * h * l * l * dh,
+                                        "bf16" if dtype == bf else "tf32x3")[0]
         if first is None:
             first = (q, k, v, km)
         del out, ref
@@ -540,6 +550,7 @@ def check_kernels(reps: int = 10):
                     "bf16"),
            sdpa_by_shape[what], [list(s[:4]) for s in K2_SHAPES] + [[2, 12, 4096, 64]],
            timed_shape=what, ms_by_shape=ms_by_shape, library_ms_by_shape=sdpa_by_shape,
+           plain_ms_by_shape=plain_by_shape, bound_ms_by_shape=bound_by_shape,
            fp32_source="weclip_tpu_torch/csrc/cross_attention.cu")
     del first, q, k, v
 
@@ -610,7 +621,7 @@ def check_kernels(reps: int = 10):
     del exact
     # the autograd.Function (K1 forward, K3 backward): under bf16 it must
     # give exactly K1's output and K3's gradients (dq times the scale);
-    # under fp32 (FMA kernels) it is held to autograd of the plain forward
+    # under fp32 (split-TF32 kernels) it is held to autograd of the plain forward
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
     out, _ = ak.AttentionCoreFn.apply(qg, kg, vg, km)
     g_fn = torch.autograd.grad(out, (qg, kg, vg), do.to(bf))
@@ -754,8 +765,9 @@ def check_kernels(reps: int = 10):
 
 
 # head widths past the compiled instances' own (16, 32, 64, 128): each runs
-# the next instance up with zero lanes; 128 is CTI's at the tiny config
-WIDTHS = [8, 20, 48, 80, 128]
+# the next instance up with zero lanes, or above 128 slices of 128 columns
+# (320: two whole slices and a half one); 128 is CTI's at the tiny config
+WIDTHS = [8, 20, 48, 80, 128, 160, 256, 320]
 # (B, H, L) of the width checks: a ViT-block-like square shape (K1, K2, K3)
 # and CTI's training injection, (B, H, Lq) x Lk (K6, K3-rect)
 WIDTH_SQUARE = (4, 8, 1025)
@@ -832,8 +844,8 @@ def k4_checks(what, aff, imgs, cfg):
 
 def check_widths(records, reps: int = 5):
     """Phase 3, head widths, lengths and dilation sets past the main
-    path's: every attention kernel at Dh 8, 20, 48, 80 and 128 in bf16 and
-    fp32, forward and backward, each output to its own tolerance; the fp32
+    path's: every attention kernel at Dh 8, 20, 48, 80, 128, 160, 256 and
+    320 in bf16 and fp32, forward and backward, each output to its own tolerance; the fp32
     K1 at L 2048 and 4096; K4 and K5 at PAR_DILATION_SETS, and K5's far
     form at the shipped set beside its packed form.  Each shape
     timed beside its plain version, SDPA where it computes the same
@@ -879,7 +891,7 @@ def check_widths(records, reps: int = 5):
     km_rect[1, lk // 2:] = 0.0
     for dh in WIDTHS:
         for dtype in (bf, torch.float32):
-            sz, kind, tag = (2, "bf16", "bf16") if dtype == bf else (4, "fp32", "fp32")
+            sz, kind, tag = (2, "bf16", "bf16") if dtype == bf else (4, "tf32x3", "fp32")
             key = f"Dh {dh} {tag}"
             q, k, v = qkv(b, h, l, dh, gen, dtype)
             # K1 and K2: output (and map) against the plain version
@@ -965,7 +977,7 @@ def check_widths(records, reps: int = 5):
         timing("attention_fwd_export", f"L {l_} fp32",
                cuda_ms(lambda: ak.attention_core(q, k, v, km_l, True), 2),
                cuda_ms(lambda: ak.attention_core_plain(q, k, v, km_l, True), 2),
-               bound_ms(n_bytes, 4 * b_ * h_ * l_ * l_ * dh, "fp32"), None)
+               bound_ms(n_bytes, 4 * b_ * h_ * l_ * l_ * dh, "tf32x3"), None)
         del q, k, v
         torch.cuda.empty_cache()
 

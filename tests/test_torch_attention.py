@@ -24,9 +24,10 @@ from weclip_tpu_torch.ops import attention_kernels as tak
 F32_TOL = 2e-5
 GRAD_TOL = 5e-4
 BF16_TOL = 2e-2
-# the kernels' compiled widths (16, 32, 64, 128) and widths between them,
-# which run the next one up with zero lanes
-HEAD_DIMS = [8, 16, 20, 32, 48, 64, 80, 128]
+# the kernels' compiled widths (16, 32, 64, 128), widths between them,
+# which run the next one up with zero lanes, and widths above 128, which run
+# as slices of 128 columns
+HEAD_DIMS = [8, 16, 20, 32, 48, 64, 80, 128, 160, 256]
 
 
 def _qkv_mask(seed, b, h, l, dh, n_valid):
@@ -261,9 +262,98 @@ def test_attention_core_writes_stats_only_from_the_bf16_map_kernel():
 
 @pytest.mark.parametrize("dh", [0, 129, 256])
 def test_head_widths_past_the_kernels_are_refused(dh):
-    """The one width limit left: Dh above 128 (and Dh 0) raises a
-    ValueError that names the limit, before any launch."""
-    with pytest.raises(ValueError, match="1..128"):
-        tak._check_head_dim("attention_core", dh)
-    for ok in (1, 8, 20, 80, 128):
-        tak._check_head_dim("attention_core", ok)
+    """Every width the Pallas kernels take passes the wrappers' check (no
+    upper limit: above 128 the kernels run slices of 128 columns), and
+    there the plain version matches the Pallas kernel; Dh 0 raises a
+    ValueError before any launch."""
+    if dh == 0:
+        with pytest.raises(ValueError, match="head dim 0"):
+            tak._check_head_dim("attention_core", dh)
+        return
+    tak._check_head_dim("attention_core", dh)
+    b, h, l = 2, 2, 24
+    q, k, v, kmask = _qkv_mask(16, b, h, l, dh, n_valid=(24, 9))
+    ref_out, ref_map = jpal.attention_core_pallas(
+        *map(jnp.asarray, (q, k, v, kmask)), h, interpret=True,
+        score_dtype=jnp.float32, export_weights=True)
+    out, amap = tak.attention_core(*map(torch.from_numpy, (q, k, v, kmask)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(amap.numpy(), np.asarray(ref_map), rtol=F32_TOL, atol=F32_TOL)
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: fp32 rounded to 10 explicit mantissa bits, to
+    nearest, ties away from zero (adding half a tf32 ulp to the magnitude's
+    bits, then truncating), low 13 bits zero."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _toward_zero(x64):
+    """float64 -> fp32 rounded toward zero: the tensor cores truncate as
+    they accumulate (modelled on each product's exact 8-term sum plus the
+    accumulator)."""
+    f = x64.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x64)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _split_tf32_product(a, b, group, small_apart):
+    """a @ b as csrc/cross_attention.cu takes it: each operand split into hi
+    = tf32(x) and lo = tf32(x - hi); per k-step of 8 (one m16n8k8 product)
+    lo b_hi, hi b_hi and hi b_lo, each addition truncated, the small terms
+    in an accumulator of their own where ``small_apart`` (the score
+    product); every ``group`` columns of the k-loop the accumulators are
+    added to the running fp32 sum, rounded to nearest (32 columns for the
+    score product, one key tile for the value product)."""
+    f64 = lambda x: x.astype(np.float64)
+    ah = _tf32(a)
+    al = _tf32(a - ah)
+    bh = _tf32(b)
+    bl = _tf32(b - bh)
+    shape = a.shape[:-1] + b.shape[-1:]
+    out = np.zeros(shape, np.float32)
+    for g0 in range(0, a.shape[-1], group):
+        big, small = np.zeros(shape, np.float32), np.zeros(shape, np.float32)
+        for k0 in range(g0, min(g0 + group, a.shape[-1]), 8):
+            ks = slice(k0, k0 + 8)
+            for x, y, is_small in ((al, bh, True), (ah, bh, False), (ah, bl, True)):
+                term = f64(x[..., ks]) @ f64(y[..., ks, :])
+                if is_small and small_apart:
+                    small = _toward_zero(f64(small) + term)
+                else:
+                    big = _toward_zero(f64(big) + term)
+        out = (out + (big + small)).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("dh", [8, 16, 20, 32, 48, 64, 80, 128, 160, 256])
+def test_split_tf32_product_error(dh):
+    """The fp32 kernels' products (three TF32 products of split operands,
+    the lo lo term dropped, the tensor cores' truncating accumulation
+    modelled) against float64: the score product q K^T at (B, H, L, Dh)
+    and the value product P V over 512 keys in tiles of 64, each at most
+    10 times strict fp32's own distance from float64 (measured over seeds
+    up to 2.6x for the scores, 7.1x for the values where numpy's own sum
+    lands unusually close), and at most a tenth of the card's 2e-5
+    tolerance against the strict fp32 plain version."""
+    # the emulated conversion rounds to nearest, ties away from zero
+    tie = np.float32(1 + 2.0 ** -11)
+    assert _tf32(tie) == np.float32(1 + 2.0 ** -10)
+    assert _tf32(-tie) == -np.float32(1 + 2.0 ** -10)
+    assert _tf32(np.float32(1 + 2.0 ** -11 - 2.0 ** -23)) == 1.0
+    rng = np.random.default_rng(dh)
+    b, h, l, lk = 2, 2, 24, 512
+    q = (rng.standard_normal((b, h, l, dh)) * dh ** -0.5).astype(np.float32)
+    k = rng.standard_normal((b, h, l, dh)).astype(np.float32)
+    v = rng.standard_normal((b, h, lk, dh)).astype(np.float32)
+    e = rng.standard_normal((b, h, l, lk))
+    ex = np.exp(e - e.max(-1, keepdims=True))
+    p = (ex / ex.sum(-1, keepdims=True)).astype(np.float32)
+    for a, bm, group, apart in ((q, np.swapaxes(k, -1, -2), 32, True), (p, v, 64, False)):
+        exact = np.matmul(a.astype(np.float64), bm.astype(np.float64))
+        strict = np.abs(np.matmul(a, bm) - exact).max()
+        three = np.abs(_split_tf32_product(a, bm, group, apart) - exact).max()
+        assert three <= 10 * strict, (three, strict)
+        assert three <= 2e-6, three

@@ -16,8 +16,11 @@ from weclip_tpu_torch.refine import par_kernels as pk
 pytestmark = pytest.mark.cuda
 
 # every head width the kernels take runs a compiled instance (16, 32, 64,
-# 128) or the next one up with zero lanes
-WIDTHS = [8, 16, 20, 32, 48, 64, 80, 128]
+# 128), the next one up with zero lanes, or (above 128) slices of 128
+# columns, the last one partly zero lanes
+WIDTHS = [8, 16, 20, 32, 48, 64, 80, 128, 129, 192, 256, 320]
+# the compiled instances
+COMPILED = [16, 32, 64, 128]
 
 
 @pytest.fixture
@@ -115,11 +118,13 @@ def _bf16_ulp(x: float) -> float:
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("lq,lk", [(130, 5376), (2100, 77), (77, 2100)])
-def test_cross_attention_kernel_matches_plain(card, dtype, lq, lk):
+@pytest.mark.parametrize("lq,lk,dh", [(130, 5376, 64), (2100, 77, 64), (77, 2100, 64)]
+                         + [(77, 2100, dh) for dh in WIDTHS if dh != 64])
+def test_cross_attention_kernel_matches_plain(card, dtype, lq, lk, dh):
     """K6 at key lengths past what a whole-row design keeps in shared
-    memory; fp32 to 2e-5, bf16 to one bf16 ulp of the largest output."""
-    q, k, v, km = _rect(card, lq, lk, dtype)
+    memory, and at every head width; fp32 (split-TF32 products) to 2e-5,
+    bf16 to one bf16 ulp of the largest output."""
+    q, k, v, km = _rect(card, lq, lk, dtype, dh)
     before = kernels.launches["cross_attention"]
     out = ak.cross_attention_core(q, k, v, km)
     ref = ak.cross_attention_core_plain(q, k, v, km)
@@ -132,13 +137,14 @@ def test_cross_attention_kernel_matches_plain(card, dtype, lq, lk):
 @pytest.mark.parametrize("dh", WIDTHS)
 @pytest.mark.parametrize("lq,lk", [(3294, 625), (625, 3294)])
 def test_cross_attention_wgmma_kernel_at_ragged_lengths(card, dh, lq, lk):
-    """K6 under bf16 (the wgmma kernel) where neither length is a whole
-    number of 64-row tiles, at every head width: the swizzles of its tensor
-    maps (128-byte for Dh 64 and 128, two boxes a row at 128; 64-byte for
-    32; 32-byte for 16), zero lanes from TMA for widths between them, a
-    zero-padded copy for a width that is not a multiple of 8 (20); one bf16
-    ulp of the largest output, and exactly 0 for the image with no valid
-    key."""
+    """K6 under bf16 where neither length is a whole number of 64-row
+    tiles, at every head width: up to 128 the wgmma kernel, with the
+    swizzles of its tensor maps (128-byte for Dh 64 and 128, two boxes a
+    row at 128; 64-byte for 32; 32-byte for 16), zero lanes from TMA for
+    widths between them, a zero-padded copy for a width that is not a
+    multiple of 8 (20); above 128 cross_attention.cu's slices of 128
+    columns; one bf16 ulp of the largest output, and exactly 0 for the
+    image with no valid key."""
     q, k, v, km = _rect(card, lq, lk, torch.bfloat16, dh)
     before = kernels.launches["cross_attention"]
     out = ak.cross_attention_core(q, k, v, km)
@@ -253,10 +259,10 @@ def test_par_propagate_iteration_counts(card, num_iter):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
-    q, k, v, km = _qkv(card, 1, 2, 16, 129, torch.float32, (16,))
-    with pytest.raises(ValueError, match="1..128"):
-        ak.attention_core(q, k, v, km)                       # Dh 129
-    with pytest.raises(ValueError, match="1..128"):
+    q, k, v, km = _qkv(card, 1, 2, 16, 0, torch.float32, (16,))
+    with pytest.raises(ValueError, match="head dim 0"):
+        ak.attention_core(q, k, v, km)                       # Dh 0
+    with pytest.raises(ValueError, match="head dim 0"):
         ak.cross_attention_core(q, k, v, km)
     q, k, v, km = _qkv(card, 1, 2, 16, 64, torch.float16, (16,))
     with pytest.raises(ValueError):
@@ -273,13 +279,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
                                                (16,)))[0].cpu().numpy()).all()
 
 
+@pytest.mark.parametrize("dh", COMPILED)
 @pytest.mark.parametrize("l", [2048, 4096])
-def test_attention_fwd_export_fp32_takes_long_sequences(card, l):
+def test_attention_fwd_export_fp32_takes_long_sequences(card, l, dh):
     """K1 under fp32 is a key-tiled forward with row statistics and a map
-    kernel: L past the old whole-row limit (about 1650) runs, output and
-    map within 2e-5 of the plain version, an image with masked keys, and
-    the statistics written to the caller's buffer."""
-    q, k, v, km = _qkv(card, 2, 3, l, 64, torch.float32, (l, l // 3))
+    kernel: L past the old whole-row limit (about 1650) runs at every
+    compiled width, output and map within 2e-5 of the plain version, an
+    image with masked keys, and the statistics written to the caller's
+    buffer."""
+    q, k, v, km = _qkv(card, 2, 3, l, dh, torch.float32, (l, l // 3))
     stats = torch.empty((2, 3, l, 2), device=card)
     before = kernels.launches["attention_fwd_export"]
     out, amap = ak.attention_core(q, k, v, km, export_weights=True, stats=stats)

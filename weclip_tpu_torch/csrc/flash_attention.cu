@@ -2,8 +2,9 @@
 // forward (K2, and K1 as that forward plus a map kernel) and the bf16
 // backward for any (Lq, Lk) (K3 and K3-rect).  Plain C entry points,
 // loaded with ctypes by weclip_tpu_torch/kernels.py; wrappers in
-// ops/attention_kernels.py.  Under the fp32 score type K2 and the backward
-// run cross_attention.cu's FMA kernels and K1 attention.cu's.
+// ops/attention_kernels.py.  Under the fp32 score type, and under bf16
+// above head width 128, K1's forward, K2 and the backward run
+// cross_attention.cu's kernels, and K1's map attention.cu's.
 //
 // Replaces (weclip_tpu/ops/pallas_attention.py), under bf16:
 //   K1       attention_core_pallas(export_weights=True)   (_attn_kernel; :195, pallas_call :260)
@@ -68,7 +69,8 @@
 // the staged tiles outgrow the 48 KB of static shared memory, so those
 // instances take theirs dynamically (common.cuh::static_or_dynamic); and
 // the dK/dV kernel, whose two 128-wide accumulators would spill, runs as
-// two launches, one for dK and one for dV, each recomputing S^T.
+// two launches, one for dK and one for dV, each recomputing S^T.  A wider
+// head runs cross_attention.cu's bf16 kernels, in slices of 128 columns.
 
 #include "common.cuh"
 

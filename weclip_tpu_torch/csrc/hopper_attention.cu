@@ -2,7 +2,8 @@
 // warpgroup tensor-core products (wgmma) and tensor-memory loads (TMA), for
 // sm_90a.  Plain C entry point, loaded with ctypes by
 // weclip_tpu_torch/kernels.py; wrapper ops/attention_kernels.py::
-// cross_attention_core.  Under fp32, K6 is cross_attention.cu's FMA kernel.
+// cross_attention_core.  Under fp32, and under bf16 above head width 128,
+// K6 is cross_attention.cu's key-tiled forward.
 //
 // Replaces (weclip_tpu/ops/pallas_attention.py), under bf16:
 //   K6  cross_attention_core_pallas   (_attn_kernel, no export; :539, pallas_call :582)
@@ -48,6 +49,12 @@
 // unchanged, and the epilogue writes the Dh true columns.  TMA needs the
 // global row stride to be a multiple of 16 bytes, so other widths are
 // refused here; the wrapper hands them over zero-padded to a multiple of 8.
+// Above 128 the wrapper runs cross_attention.cu's bf16 forward, which
+// stages q and K a 128-column chunk at a time: this kernel keeps the
+// block's q and its K ring at full width, 255,800 bytes of shared memory
+// at Dh 320 (q 81,920, three K stages 122,880, three 128-column V stages
+// 49,152, biases, barriers and the alignment), past the 232,448 a block
+// can have (Dh 256 would fit in 214,840).
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 

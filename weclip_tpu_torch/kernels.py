@@ -36,9 +36,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every function returns the cudaError_t of its launches
 SIGNATURES = {
     "attention": {
-        # fp32 q (pre-scaled), k, kbias, stats (from xattn_fwd), map, B, H,
-        # L, Dh, stream
-        "attn_map_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # fp32 q (unscaled), k, kbias (padded to 64 keys), stats (from
+        # xattn_fwd), map, B, H, L, Dh, scale, stream
+        "attn_map_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        # the same in bf16, Dh > 128 (stats from xattn_fwd_bf16)
+        "attn_map_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     },
     "flash_attention": {
         # bf16 q, k, v, kbias (padded to 64 keys), out, stats (or None), B,
@@ -57,13 +59,19 @@ SIGNATURES = {
         "xattn_fwd_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "cross_attention": {
-        # fp32 q (pre-scaled), k, v, kbias, out, stats (or None), B, H, Lq,
-        # Lk, Dh, stream
-        "xattn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        # fp32 q(pre-scaled), k, v, do, kbias, dq, dk, dv, stats, B, H, Lq,
-        # Lk, Dh, stream
+        # fp32 q (unscaled), k, v, kbias (padded), out, stats (or None), B,
+        # H, Lq, Lk, Dh, scale, stream
+        "xattn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        # the same in bf16, Dh > 128, out bf16 or (out_f32) fp32
+        "xattn_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                           _P],
+        # fp32 q (unscaled), k, v, do, kbias (padded), dq, dk, dv, stats, B,
+        # H, Lq, Lk, Dh, scale, stream
         "xattn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _I, _P],
+                      _I, _F, _P],
+        # the same in bf16, Dh > 128
+        "xattn_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _F, _P],
     },
     "par": {
         # img, aff, posw (device: the 8 * n_dil positional weights), B, H,

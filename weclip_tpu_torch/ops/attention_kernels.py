@@ -13,25 +13,28 @@ Each wrapper sits beside its plain PyTorch version:
   ``custom_vjp`` _cross_core_fused).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel or raises.  Sources, under bf16: K1, K2, K3 and K3-rect
-``csrc/flash_attention.cu`` (key-tiled, any length; K1 is K2's forward
-with each row's (max, 1/sum) written out, then a map kernel that sums P
-over the heads, ``attention_row_stats_plain`` and ``attention_map_plain``
-being the two launches' plain versions; K3 reads bf16 q, k, v and dO as they
-come and scales q as it stages it); K6 ``csrc/hopper_attention.cu``
-(``wgmma`` products on TMA-loaded tiles).  Under fp32 (FMA loops, for the
-fp32 policy's parity checks): K2, K6, the backward and K1's forward
-``csrc/cross_attention.cu``, K1's map ``csrc/attention.cu``; any L.  The
-TPU stream padding (``stream_pad_len``/``pad_stream``, and CoMer's
-128-multiples) is not ported: the kernels run at the true sequence lengths.
+launches its kernel or raises.  Sources, under bf16 up to head width 128:
+K1, K2, K3 and K3-rect ``csrc/flash_attention.cu`` (key-tiled, any length;
+K1 is K2's forward with each row's (max, 1/sum) written out, then a map
+kernel that sums P over the heads, ``attention_row_stats_plain`` and
+``attention_map_plain`` being the two launches' plain versions; K3 reads
+bf16 q, k, v and dO as they come and scales q as it stages it); K6
+``csrc/hopper_attention.cu`` (``wgmma`` products on TMA-loaded tiles).
+Under fp32 (every attention call of the fp32 policy, and the eval
+decoder's under the default ``head_dtype``): K2, K6, the backward and K1's
+forward ``csrc/cross_attention.cu`` (split-TF32 products on the tensor
+cores), K1's map ``csrc/attention.cu``; any L.  The TPU stream padding
+(``stream_pad_len``/``pad_stream``, and CoMer's 128-multiples) is not
+ported: the kernels run at the true sequence lengths.
 
-Every kernel takes any head width Dh from 1 to ``MAX_HEAD_DIM``: the C
-side runs Dh 16, 32, 64 and 128 as compiled instances and a width between
-them on the next one up, with zeros in the lanes past Dh.  K6 under bf16
-reads its tiles by TMA, which needs rows of a multiple of 16 bytes, so
-there a width that is not a multiple of 8 is handed over zero-padded to
-the next multiple of 8 (a copy of q, k and v, part of the wrapper's time).
-A wider head raises ``ValueError``.
+Every kernel takes any head width Dh >= 1, as the Pallas kernels do: the
+C side runs Dh 16, 32, 64 and 128 as compiled instances, a width between
+them on the next one up with zeros in the lanes past Dh, and a width above
+128 as slices of 128 columns (``csrc/cross_attention.cu`` under both score
+types, K1's map ``csrc/attention.cu``).  K6 under bf16 up to 128 reads its
+tiles by TMA, which needs rows of a multiple of 16 bytes, so there a width
+that is not a multiple of 8 is handed over zero-padded to the next
+multiple of 8 (a copy of q, k and v, part of the wrapper's time).
 """
 
 from __future__ import annotations
@@ -45,14 +48,14 @@ from weclip_tpu_torch import kernels
 from weclip_tpu_torch.core import precision
 from weclip_tpu_torch.ops.attention import MhaParams, qkv_project
 
-# the widest head the kernels take (csrc: WECLIP_DISPATCH_DH)
-MAX_HEAD_DIM = 128
+# the widest head of the bf16 kernels of flash_attention.cu and
+# hopper_attention.cu; wider heads run cross_attention.cu's slices
+FLASH_MAX_HEAD_DIM = 128
 
 
 def _check_head_dim(name: str, dh: int) -> None:
-    if not 1 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {dh} is outside 1..{MAX_HEAD_DIM}, "
-                         f"the widths the kernels take")
+    if dh < 1:
+        raise ValueError(f"{name}: head dim {dh} is below 1")
 
 
 def _key_bias(kmask: torch.Tensor) -> torch.Tensor:
@@ -141,7 +144,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    stats: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K1 (``export_weights=True``) / K2 on CUDA; the plain version on CPU.
-    Both take any L and any head width up to ``MAX_HEAD_DIM``.  K1 is two
+    Both take any L and any head width.  K1 is two
     launches: a key-tiled forward that writes each row's (max, 1/sum), then
     the map kernel, which sums P over the heads from them.  ``stats``, a
     (B, H, L, 2) fp32 CUDA buffer, receives those statistics (K1 only)."""
@@ -161,8 +164,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     amap = (torch.empty((b, l, l), device=q.device, dtype=torch.float32)
             if export_weights else None)
-    scale, bf16 = dh ** -0.5, q.dtype == torch.bfloat16
-    c_scale = ctypes.c_float(scale)
+    bf16, c_scale = q.dtype == torch.bfloat16, ctypes.c_float(dh ** -0.5)
     if export_weights and stats is None:
         stats = torch.empty((b, h, l, 2), device=q.device, dtype=torch.float32)
     elif stats is not None and (
@@ -172,29 +174,32 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "(B, H, L, 2) fp32 tensor on q's device")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if bf16:
-            bias = _padded_key_bias(kmask)
+        bias = _padded_key_bias(kmask)
+        st = None if stats is None else stats.data_ptr()
+        if bf16 and dh <= FLASH_MAX_HEAD_DIM:
             kernels.call("flash_attention", "flash_fwd", q.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                         None if stats is None else stats.data_ptr(), b, h, l, dh,
+                         v.data_ptr(), bias.data_ptr(), out.data_ptr(), st, b, h, l, dh,
                          c_scale, stream)
             if export_weights:
                 kernels.call("flash_attention", "attn_map", q.data_ptr(), k.data_ptr(),
                              bias.data_ptr(), stats.data_ptr(), amap.data_ptr(), b, h,
                              l, dh, c_scale, stream)
         else:
-            # the FMA forward K6 runs under fp32, on the pre-scaled q; K1
-            # then sums the map from its row statistics on the same q
-            qs = q * scale
-            bias = _key_bias(kmask).contiguous()
-            kernels.call("cross_attention", "xattn_fwd", qs.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                         None if stats is None else stats.data_ptr(), b, h, l, l,
-                         dh, stream)
+            # the split-TF32 forward (fp32), or the bf16 one above Dh 128,
+            # scaling q as it stages it; K1 then sums the map from its row
+            # statistics on the same scaled q
+            if bf16:
+                kernels.call("cross_attention", "xattn_fwd_bf16", q.data_ptr(), k.data_ptr(),
+                             v.data_ptr(), bias.data_ptr(), out.data_ptr(), st, b, h, l, l,
+                             dh, c_scale, 0, stream)
+            else:
+                kernels.call("cross_attention", "xattn_fwd", q.data_ptr(), k.data_ptr(),
+                             v.data_ptr(), bias.data_ptr(), out.data_ptr(), st, b, h, l, l,
+                             dh, c_scale, stream)
             if export_weights:
-                kernels.call("attention", "attn_map_f32", qs.data_ptr(), k.data_ptr(),
-                             bias.data_ptr(), stats.data_ptr(), amap.data_ptr(), b, h,
-                             l, dh, stream)
+                kernels.call("attention", "attn_map_bf16" if bf16 else "attn_map_f32",
+                             q.data_ptr(), k.data_ptr(), bias.data_ptr(), stats.data_ptr(),
+                             amap.data_ptr(), b, h, l, dh, c_scale, stream)
     kernels.launches["attention_fwd_export" if export_weights else "attention_fwd"] += 1
     return out, amap
 
@@ -240,10 +245,10 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attention runs on the scaled query ``q * q_scale`` (taken in fp32, then
     rounded to the score type), and fp32 (dq, dk, dv) are the gradients
     with respect to it.  Under bf16 the kernels (csrc/flash_attention.cu)
-    read q, k, v and do in bf16 (other dtypes are cast first); under fp32
-    the FMA kernels of csrc/cross_attention.cu run.  ``stats``, a (B, H, Lq,
-    3) fp32 CUDA buffer, receives each query row's (max score, 1/sum,
-    delta)."""
+    read q, k, v and do in bf16 (other dtypes are cast first; above Dh 128
+    csrc/cross_attention.cu's bf16 kernels run); under fp32 the split-TF32
+    kernels of csrc/cross_attention.cu.  ``stats``, a (B, H, Lq, 3) fp32
+    CUDA buffer, receives each query row's (max score, 1/sum, delta)."""
     if not q.is_cuda:
         qs = q if q_scale == 1.0 else q.float() * q_scale
         return attention_bwd_plain(qs, k, v, do, kmask, score_dtype)
@@ -270,21 +275,16 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if score_dtype == torch.bfloat16:
-            ins = [t.to(torch.bfloat16).contiguous() for t in (q, k, v, do)]
-            _check_cuda("attention_bwd", kmask, *ins)
-            bias = _padded_key_bias(kmask)
-            kernels.call("flash_attention", "flash_bwd",
-                         *(t.data_ptr() for t in ins), bias.data_ptr(), *outs,
-                         b, h, lq, lk, dh, ctypes.c_float(q_scale), stream)
+        bf16 = score_dtype == torch.bfloat16
+        ins = [t.to(score_dtype).contiguous() for t in (q, k, v, do)]
+        _check_cuda("attention_bwd", kmask, *ins)
+        bias = _padded_key_bias(kmask)
+        if bf16 and dh <= FLASH_MAX_HEAD_DIM:
+            lib, fn = "flash_attention", "flash_bwd"
         else:
-            qf = q.float() * q_scale if q_scale != 1.0 else q.float()
-            ins = [t.contiguous() for t in (qf, k.float(), v.float(), do.float())]
-            _check_cuda("attention_bwd", kmask, *ins)
-            bias = _key_bias(kmask).contiguous()
-            kernels.call("cross_attention", "xattn_bwd",
-                         *(t.data_ptr() for t in ins), bias.data_ptr(), *outs,
-                         b, h, lq, lk, dh, stream)
+            lib, fn = "cross_attention", "xattn_bwd_bf16" if bf16 else "xattn_bwd"
+        kernels.call(lib, fn, *(t.data_ptr() for t in ins), bias.data_ptr(), *outs,
+                     b, h, lq, lk, dh, ctypes.c_float(q_scale), stream)
     kernels.launches["attention_bwd" if lq == lk else "attention_bwd_rect"] += 1
     return dq, dk, dv
 
@@ -311,7 +311,9 @@ def cross_attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def cross_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kmask: torch.Tensor) -> torch.Tensor:
     """K6 on CUDA; the plain version on CPU.  q, k, v share the score dtype
-    (bf16: the wgmma kernel of csrc/hopper_attention.cu; fp32: FMA loops)."""
+    (bf16: the wgmma kernel of csrc/hopper_attention.cu up to head width
+    128, csrc/cross_attention.cu's bf16 forward above; fp32: the split-TF32
+    forward of csrc/cross_attention.cu)."""
     if not q.is_cuda:
         return cross_attention_core_plain(q, k, v, kmask)
     _check_cuda("cross_attention_core", kmask, q, k, v)
@@ -329,8 +331,9 @@ def cross_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_head_dim("cross_attention_core", dh)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if q.dtype == torch.bfloat16:
-            bias = _padded_key_bias(kmask)
+        bias = _padded_key_bias(kmask)
+        one = ctypes.c_float(1.0)
+        if q.dtype == torch.bfloat16 and dh <= FLASH_MAX_HEAD_DIM:
             pad = -dh % 8   # TMA: rows of a multiple of 16 bytes
             if pad:
                 q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
@@ -340,12 +343,14 @@ def cross_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          dh + pad, stream)
             if pad:
                 out = out[..., :dh].contiguous()
-        else:
+        else:   # split-TF32 (fp32), or bf16 above Dh 128 with an fp32 output
             out = torch.empty(q.shape, device=q.device, dtype=torch.float32)
-            bias = _key_bias(kmask).contiguous()
-            kernels.call("cross_attention", "xattn_fwd", q.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), bias.data_ptr(), out.data_ptr(), None, b, h, lq, lk,
-                         dh, stream)
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                    out.data_ptr(), None, b, h, lq, lk, dh, one)
+            if q.dtype == torch.bfloat16:
+                kernels.call("cross_attention", "xattn_fwd_bf16", *args, 1, stream)
+            else:
+                kernels.call("cross_attention", "xattn_fwd", *args, stream)
     kernels.launches["cross_attention"] += 1
     return out
 
