@@ -22,7 +22,8 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
    card could take (``bound_ms``); then every attention kernel at head
    widths 8, 20, 48, 80, 128, 160, 256 and 320 in bf16 and fp32, forward
    and backward, the
-   fp32 K1 at L 2048 and 4096, and K4/K5 at dilation sets past the shipped
+   fp32 K1 at L 2048 and 4096 (K1 less K2 at each width printed: the map
+   kernel's cost), and K4/K5 at dilation sets past the shipped
    one ((1, 2, 4, 8, 12, 24, 32, 48), (5,), (1, 2, 64)) on a 20 x 28 image
    and the eval canvas, each checked, timed and bounded the same way
    (``check_widths``);
@@ -74,14 +75,18 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
 14. ``WeCLIPPipeline.cam`` by each of the 8 CAM methods (K1, and K3 for
    the gradient methods), card against CPU in fp32 through ``cam_single``,
    and ``generate_cams`` over the 8 cached images;
-15. the dense CRF: K7 (``csrc/crf.cu``, the windowed bilateral message)
-   against its plain twin at (8, 81, 160, 160) and (8, 21, 128, 128), r 32,
-   timed beside its bound; ``mean_field_crf`` on the card against the CPU
+15. the dense CRF: K7 (``csrc/crf.cu``, the windowed bilateral message on
+   split-TF32 tensor-core products) against its plain twin at (8, 81, 160,
+   160) and (8, 21, 128, 128), r 32, the message and the normalizer alone
+   timed beside the tensor-core bound and the FMA bound of the kernel it
+   replaced, with each launch's geometry and its registers (``cuobjdump``);
+   ``mean_field_crf`` on the card against the CPU
    in fp32 (dense (21, 512, 512) at stride 4, windowed (81, 640, 640) at
    stride 16); ``Evaluator.run(crf=True)`` on VOC-size images with
    ``crf_impl`` native (2 of them) and jax (8), and on 8 COCO-size images
-   with jax (K7's path), histogram totals equal to the labelled pixels; the
-   ``eval_voc`` CLI with ``--crf --crf_impl jax``;
+   with jax (K7's path), histogram totals equal to the labelled pixels, the
+   jax runs' wall time printed beside K7's time; the ``eval_voc`` CLI with
+   ``--crf --crf_impl jax``;
 16. data parallel: two gloo ranks sharing the card, spawned by
    ``torch.multiprocessing``: 3 fp32 train steps at full width (crop 320, 2
    crops a rank) against one process at batch 4, and ``Evaluator.run``'s
@@ -1039,8 +1044,19 @@ def check_widths(records, reps: int = 5):
               flush=True)
         del imgs, masks, aff
         torch.cuda.empty_cache()
+    # K1 less K2 at the same shape: the map kernel's cost where K1's forward
+    # is K2's kernel with row statistics (fp32, and bf16 above 128)
+    gaps = {}
+    for key, k1 in times["attention_fwd_export"].items():
+        k2 = times["attention_fwd"].get(key)
+        if k2 is not None and (key.endswith("fp32") or int(key.split()[1]) > 128):
+            gaps[key] = k1["ms"] - k2["ms"]
+            print(f"[kernel] attention_fwd_export {key}: K1 {k1['ms']:.4f} ms - K2 "
+                  f"{k2['ms']:.4f} ms = {gaps[key]:.4f} ms (the map); plain K1 "
+                  f"{k1['plain_ms']:.4f} ms", flush=True)
     for name in times:
         add_checks(records, name, checks[name], extra_shapes=times[name])
+    add_checks(records, "attention_fwd_export", [], map_gap_ms=gaps)
     # every attention instance's registers and spills (PAR's: check_kernels)
     return {lib: kernel_resources(lib) for lib in ("flash_attention", "hopper_attention",
                                                    "cross_attention", "attention")}
@@ -2425,18 +2441,26 @@ def k7_bound(b: int, c: int, hs: int, ws: int, r: int):
     """K7's least time: each input read once and each output written once;
     per in-bound (pixel, offset) pair of this grid, 2 C flops of the message
     and 12 of the weight (3 differences, 3 squares, 2 sums, the distance,
-    its sum, the scale and the exponential)."""
+    its sum, the scale and the exponential).  Returns the bound of the
+    kernel as it runs (the message's flops at the split-TF32 rate, the
+    weight's on the CUDA cores, the larger of those and the bytes' time),
+    the bound of the kernel's earlier FMA form (every flop at fp32's 67
+    TFLOP/s), each as (ms, what bounds it), and the pairs."""
     def along(n):
         return sum(min(r, n - 1 - y) - max(-r, -y) + 1 for y in range(n))
     pairs = b * along(hs) * along(ws)
     n_bytes = 4 * (2 * b * c * hs * ws + 3 * b * hs * ws + b * hs * ws)
-    return bound_ms(n_bytes, pairs * (2 * c + 12), "fp32"), pairs
+    tc_bound = max(bound_ms(n_bytes, pairs * 2 * c, "tf32x3"),
+                   bound_ms(n_bytes, pairs * 12, "fp32"))
+    return tc_bound, bound_ms(n_bytes, pairs * (2 * c + 12), "fp32"), pairs
 
 
 def check_crf_kernel(records, reps: int = 5):
     """K7 against its plain twin on the card at ``K7_SHAPES`` (the message
-    and the normalizer, each within 1e-5 of its largest value), timed
-    beside the twin and its bound; appends K7's record."""
+    and the normalizer, each within 1e-5 of its largest value), timed (the
+    message, and the normalizer alone) beside the twin and both bounds
+    (``k7_bound``), with each launch's geometry and the kernels' registers;
+    appends K7's record."""
     import torch
 
     from weclip_tpu_torch.refine import crf_kernels as ck
@@ -2462,13 +2486,19 @@ def check_crf_kernel(records, reps: int = 5):
             checks.append((f"{name} {[b, c, hs, ws]} r {r}", max_err(got, ref),
                            1e-5 * float(ref.abs().max())))
         ms = cuda_ms(lambda: ck.window_message(q, img, sig, r), reps)
-        bound, pairs = k7_bound(b, c, hs, ws, r)
-        times[what] = {"shape": [b, c, hs, ws], "r": r, "ms": ms, "plain_ms": plain,
-                       "bound_ms": bound[0], "bound_by": bound[1], "pairs": pairs}
+        norm_ms = cuda_ms(lambda: ck.window_message(None, img, sig, r), reps)
+        bound, fma_bound, pairs = k7_bound(b, c, hs, ws, r)
+        geometry = {"message": ck.window_geometry(c, hs, ws, r),
+                    "normalizer": ck.window_geometry(0, hs, ws, r)}
+        times[what] = {"shape": [b, c, hs, ws], "r": r, "ms": ms, "normalizer_ms": norm_ms,
+                       "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
+                       "fma_bound_ms": fma_bound[0], "pairs": pairs, "geometry": geometry}
         shapes.append([b, c, hs, ws])
-        print(f"[kernel] crf_window {what} {[b, c, hs, ws]} r {r}: {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), {pairs} in-bound "
-              f"pixel-offsets", flush=True)
+        print(f"[kernel] crf_window {what} {[b, c, hs, ws]} r {r}: {ms:.4f} ms (normalizer "
+              f"alone {norm_ms:.4f} ms), plain {plain:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}; split-TF32 message, weights on the CUDA cores), FMA bound "
+              f"{fma_bound[0]:.4f} ms, {pairs} in-bound pixel-offsets; launch geometry "
+              f"{json.dumps(geometry)}", flush=True)
         del q, img, acc, norm, norm_only, ref_acc, ref_norm
     main = times[K7_SHAPES[0][5]]
     record_kernel(records, "crf_window", "weclip_tpu_torch/csrc/crf.cu",
@@ -2476,8 +2506,9 @@ def check_crf_kernel(records, reps: int = 5):
                   "an XLA fori_loop; no pallas_call)",
                   checks, main["ms"], main["plain_ms"], (main["bound_ms"], main["bound_by"]),
                   None, shapes, timed_shape=K7_SHAPES[0][5], ms_by_shape=times,
-                  resources=kernel_resources("crf"))
+                  fma_bound_ms=main["fma_bound_ms"], resources=kernel_resources("crf"))
     torch.cuda.empty_cache()
+    return times
 
 
 def crf_inputs(c: int, size: int, seed: int):
@@ -2570,7 +2601,7 @@ def run_crf(records, card: str):
     from weclip_tpu_torch.models import weclip
     from weclip_tpu_torch.refine import crf as crf_mod
 
-    check_crf_kernel(records)
+    k7_times = check_crf_kernel(records)
     crf_cfg = CrfConfig()
     out = {}
     on_cpu = lambda s, d: (lambda p, im: crf_mod.mean_field_crf(
@@ -2645,6 +2676,15 @@ def run_crf(records, card: str):
         torch.cuda.empty_cache()
     if not launches["evaluator_crf_jax_coco"]["crf_window"]:
         raise AssertionError("K7 did not launch on the COCO crf_impl='jax' path")
+    # the CRF evaluation's wall time beside K7's time at each grid
+    for name, what in (("evaluator_crf_jax", K7_SHAPES[1][5]),
+                       ("evaluator_crf_jax_coco", K7_SHAPES[0][5])):
+        run, k7 = out[name], k7_times[what]
+        print(f"[crf] {name}: Evaluator.run(crf=True, crf_impl='jax') {run['run_ms']:.1f} ms "
+              f"over 8 images, {run['run_ms'] - run['run_without_crf_ms']:.1f} ms of it the CRF; "
+              f"{launches[name]['crf_window']} K7 launches; K7 at {k7['shape']} r {k7['r']} "
+              f"{k7['ms']:.4f} ms (normalizer {k7['normalizer_ms']:.4f} ms); on {card}",
+              flush=True)
     return launches, out
 
 

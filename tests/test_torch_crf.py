@@ -9,7 +9,8 @@ package's (weclip_tpu/refine/crf.py) on the CPU.
   strategies (the windowed one forced with ``dense_max_points=0``), fp32
   probabilities within 1e-5 and equal argmax, the edge rows of the
   reference's wrap rule included; K7's plain twin against a brute-force
-  statement of that rule;
+  statement of that rule and against the halo form csrc/crf.cu computes;
+  a numpy model of K7's split-TF32 sum against float64;
 - ``Evaluator.run(crf=True)`` for ``native`` and for ``jax`` at each of the
   three strategy picks, and ``WeCLIPPipeline.segment(crf=True)``, against
   the JAX package on tiny models with the same weights (fp32)."""
@@ -165,6 +166,121 @@ def test_window_message_keeps_the_reference_wrap_rule():
     inner = (slice(None), slice(r, hs - r), slice(r, ws - r))
     np.testing.assert_allclose(acc[0].numpy()[inner], true[inner], rtol=1e-5, atol=1e-5)
     assert np.abs(acc[0].numpy() - true).max() > 0.1
+
+
+def _halo_window_sum(q, img, sig, r, tile=(8, 32)):
+    """K7's window sum in the virtual-coordinate form csrc/crf.cu takes, in
+    float64: for each tile of output pixels, the halo [y0 - r, y1 + r] x
+    [x0 - r, x1 + r] read with modular addressing (source row sy_v holds
+    row sy_v mod hs), and a pair (y, sy_v) counted iff |y - sy_v| <= r and
+    2y - hs < sy_v <= 2y, columns alike."""
+    c, hs, ws = q.shape
+    acc, norm = np.zeros((c, hs, ws)), np.zeros((hs, ws))
+    q, img = q.astype(np.float64), img.astype(np.float64)
+    for y0 in range(0, hs, tile[0]):
+        for x0 in range(0, ws, tile[1]):
+            ys, xs = np.arange(y0, min(y0 + tile[0], hs)), np.arange(x0, min(x0 + tile[1], ws))
+            vy = np.arange(ys[0] - r, ys[-1] + r + 1)
+            vx = np.arange(xs[0] - r, xs[-1] + r + 1)
+            hq = q[:, vy % hs][:, :, vx % ws]
+            hi = img[:, vy % hs][:, :, vx % ws]
+            my = ((np.abs(ys[:, None] - vy) <= r) & (vy > 2 * ys[:, None] - hs)
+                  & (vy <= 2 * ys[:, None]))
+            mx = ((np.abs(xs[:, None] - vx) <= r) & (vx > 2 * xs[:, None] - ws)
+                  & (vx <= 2 * xs[:, None]))
+            dist2 = (((ys[:, None] - vy) ** 2)[:, None, :, None]
+                     + ((xs[:, None] - vx) ** 2)[None, :, None, :]) / sig ** 2
+            pix = img[:, ys][:, :, xs]
+            cd2 = ((pix[:, :, :, None, None] - hi[:, None, None]) ** 2).sum(0)
+            k = np.exp(-0.5 * (dist2 + cd2)) * (my[:, None, :, None] & mx[None, :, None, :])
+            acc[:, ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1] = np.einsum("yxab,cab->cyx", k, hq)
+            norm[ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1] = k.sum((2, 3))
+    return acc, norm
+
+
+@pytest.mark.parametrize("hs,ws,r", [(12, 12, 0), (12, 12, 3), (12, 12, 13), (9, 13, 4),
+                                     (7, 11, 12), (15, 9, 2), (17, 40, 20)])
+def test_halo_rule_matches_the_plain_twin(hs, ws, r):
+    """The index arithmetic of K7 (csrc/crf.cu) where there is no card: its
+    virtual-coordinate halo with modular reads and pair mask
+    (``_halo_window_sum``, tiles of 8 x 32 pixels) equals K7's plain twin,
+    the reference's offset loop, within 1e-6 of each output's largest, at r
+    0, r past the grid and on non-square odd grids.  Both sum in float64
+    (the twin given float64 tensors): in fp32 the twin's own rounding over
+    a 41 x 41 window reaches 1.9e-6."""
+    rng = np.random.default_rng(hs * 100 + ws + r)
+    q = rng.random((3, hs, ws)).astype(np.float32)
+    img = (rng.random((3, hs, ws)) * 2).astype(np.float32)
+    acc, norm = _halo_window_sum(q, img, 2.5, r)
+    ref_acc, ref_norm = crf_kernels.window_message_plain(
+        torch.from_numpy(q[None]).double(), torch.from_numpy(img[None]).double(), 2.5, r)
+    for got, ref in ((acc, ref_acc[0].numpy()), (norm, ref_norm[0, 0].numpy())):
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+
+
+KAPPA = np.float32(0.72134752044448170)   # log2(e) / 2
+
+
+def _ex2_weights(pix, src, dy, dx, r, sig2):
+    """K7's weights as csrc/crf.cu forms them in fp32, for pixels (3, P)
+    and sources (3, S) at offsets dy, dx (P, S): 2^(kappa / sig^2 (-dy^2)
+    - kappa / sig^2 dx^2 - kappa cd2), 0 past the window."""
+    cs = np.float32(KAPPA / np.float32(sig2))
+    ey = -(dy ** 2).astype(np.float32) * cs
+    ex = (dx ** 2).astype(np.float32) * cs
+    cd2 = ((pix[:, :, None] - src[:, None, :]) ** 2).sum(0, dtype=np.float32)
+    w = np.exp2(((ey - ex) - KAPPA * cd2).astype(np.float32))
+    return np.where((np.abs(dy) <= r) & (np.abs(dx) <= r), w, 0).astype(np.float32)
+
+
+def test_split_tf32_window_sum_error():
+    """K7's sum as csrc/crf.cu takes it, modelled in numpy at a COCO-like
+    window (81 channels and the ones column, r 32, sig 16, a 72 x 72 grid
+    cut from COCO's 160 x 160 at stride 4): one warp's two m16 tiles (4 rows
+    x 8 columns) over their halo, each k-step of 8 sources three TF32
+    products of split operands (lo B_hi, hi B_hi, hi B_lo), each addition
+    truncated as the tensor cores do, into a fresh accumulator, then added
+    to the fp32 total rounded to nearest.  Against float64 on the same fp32
+    weights, the message and the normalizer stay within 2e-6 of each
+    output's largest, a fifth of the card's 1e-5 tolerance against the fp32
+    twin (measured 1.17e-6 and 7.1e-7), and within 1.5 times strict fp32's
+    own distance from float64 (1.24e-6 and 8.4e-7): the fp32 sum of 612
+    k-steps, not the products, sets the error."""
+    from tests.test_torch_attention import _tf32, _toward_zero
+    rng = np.random.default_rng(81)
+    hs = ws = 72
+    r, sig, c = 32, 16.0, 81
+    q = rng.random((c, hs, ws)).astype(np.float32)
+    q /= q.sum(0, keepdims=True)
+    img = (rng.random((3, hs, ws)) * 2).astype(np.float32)
+    bq = np.concatenate([q, np.ones((1, hs, ws), np.float32)])   # the ones column
+    y0, x0, big_r = 34, 32, 32                                    # R: r rounded up to 4
+    pys, pxs = np.repeat(np.arange(y0, y0 + 4), 8), np.tile(np.arange(x0, x0 + 8), 4)
+    pix = img[:, pys, pxs]
+    f64 = lambda a: a.astype(np.float64)
+    total = np.zeros((32, c + 1), np.float32)
+    strict = np.zeros((32, c + 1), np.float32)
+    exact = np.zeros((32, c + 1))
+    for sy in range(y0 - r, y0 + 3 + r + 1):
+        for k0 in range(x0 - big_r, x0 + 8 + big_r, 8):
+            sx = np.arange(k0, k0 + 8)
+            dy = np.broadcast_to((pys - sy)[:, None], (32, 8))
+            w = _ex2_weights(pix, img[:, sy % hs, sx % ws], dy, pxs[:, None] - sx, r, sig * sig)
+            b = bq[:, sy % hs, sx % ws].T                      # (8 sources, c + 1)
+            ah, bh = _tf32(w), _tf32(b)
+            al, bl = _tf32(w - ah), _tf32(b - bh)
+            part = np.zeros_like(total)
+            for x, y in ((al, bh), (ah, bh), (ah, bl)):
+                part = _toward_zero(f64(part) + f64(x) @ f64(y))
+            total = (total + part).astype(np.float32)
+            strict = (strict + w @ b).astype(np.float32)
+            exact += f64(w) @ f64(b)
+    scale = np.abs(exact).max(0)
+    err = (np.abs(f64(total) - exact) / scale).max(0)
+    strict_err = (np.abs(f64(strict) - exact) / scale).max(0)
+    assert err[:c].max() <= 2e-6 and err[c] <= 2e-6, (err[:c].max(), err[c])
+    assert err[:c].max() <= 1.5 * strict_err[:c].max(), (err[:c].max(), strict_err[:c].max())
+    assert err[c] <= 1.5 * strict_err[c], (err[c], strict_err[c])
 
 
 # ---------------------------------------------------------------------------

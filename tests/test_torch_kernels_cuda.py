@@ -319,8 +319,14 @@ def test_par_kernels_any_dilation_set(card, dil, b, c, h, w, far):
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("b, c, hs, ws, r", [(2, 21, 40, 36, 8), (1, 81, 33, 47, 5),
-                                             (3, 1, 12, 12, 13), (2, 40, 20, 20, 0)])
+# K7's tiles are 8 rows x 32 columns and its instances hold 1, 2, 3, 4, 6,
+# 8, 11 or 16 tiles of 8 channel columns (the ones column included), 127
+# channels a block: channel counts at and past those edges, grids that are
+# not whole tiles, r 0 and r past the grid
+@pytest.mark.parametrize("b, c, hs, ws, r", [
+    (2, 21, 40, 36, 8), (1, 81, 33, 47, 5), (3, 1, 12, 12, 13), (2, 40, 20, 20, 0),
+    (2, 7, 19, 45, 3), (1, 8, 9, 70, 0), (2, 9, 17, 33, 20), (1, 81, 70, 41, 32),
+    (1, 100, 26, 35, 7), (1, 1, 5, 3, 9), (1, 7, 13, 11, 0), (1, 200, 11, 38, 4)])
 def test_crf_window_kernel_matches_plain(card, b, c, hs, ws, r):
     """K7 against its plain twin: the message and the normalizer within
     1e-5 of each output's largest, the reference's wrap rule at the edges
@@ -337,3 +343,27 @@ def test_crf_window_kernel_matches_plain(card, b, c, hs, ws, r):
     for got, ref in ((acc, ref_acc), (norm, ref_norm), (norm_only, ref_norm)):
         torch.testing.assert_close(got, ref, rtol=0,
                                    atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, d) for d in (8, 48, 80, 128, 160, 320)]
+                         + [(torch.bfloat16, d) for d in (160, 320)])
+@pytest.mark.parametrize("l", [1025, 333])
+def test_attention_map_kernel_matches_plain(card, dtype, dh, l):
+    """K1's map kernel (csrc/attention.cu: fp32 at every width, bf16 above
+    128) against the plain version, each within 2e-5: the whole call's map,
+    and the map from the kernel's own row statistics
+    (``attention_map_plain``), at L 1025 and a ragged L, an image with
+    masked keys and one with none valid; each row of a valid image sums to
+    1."""
+    q, k, v, km = _qkv(card, 3, 4, l, dh, dtype, (l, l // 3, 0))
+    stats = torch.empty((3, 4, l, 2), device=card)
+    before = kernels.launches["attention_fwd_export"]
+    _, amap = ak.attention_core(q, k, v, km, export_weights=True, stats=stats)
+    assert kernels.launches["attention_fwd_export"] == before + 1
+    _, ref_map = ak.attention_core_plain(q, k, v, km, export_weights=True)
+    torch.testing.assert_close(amap, ref_map, rtol=0, atol=2e-5)
+    torch.testing.assert_close(amap, ak.attention_map_plain(q, k, km, stats), rtol=0,
+                               atol=2e-5)
+    torch.testing.assert_close(amap[:2].sum(-1), torch.ones((2, l), device=card), rtol=0,
+                               atol=1e-4)
+    assert not amap[2].any()

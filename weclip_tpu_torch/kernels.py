@@ -87,6 +87,9 @@ SIGNATURES = {
         # fp32 q (or None when C == 0), img, acc, norm, B, C, hs, ws, r,
         # sigma^2, stream
         "crf_window": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        # C, hs, ws, r, out (6 ints, host): the launch's n-tiles, halo
+        # columns, columns a unit, row stride, units a row, shared bytes
+        "crf_window_geometry": [_I, _I, _I, _I, _P],
     },
 }
 

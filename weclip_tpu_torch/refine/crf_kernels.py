@@ -10,12 +10,17 @@ written in PyTorch; given CUDA tensors it launches the kernel or raises.
 Both keep the reference's edge rule: the neighbour is read rolled,
 ``q[(y - dy) mod hs, (x - dx) mod ws]``, but masked by whether
 ``(y + dy, x + dx)`` lies in the grid, so within r of an edge wrapped
-pixels are summed and real neighbours dropped (ROADMAP.md §3).
+pixels are summed and real neighbours dropped (ROADMAP.md §3).  The kernel
+states the rule in virtual source coordinates: sy_v = y - dy reads row
+sy_v mod hs and counts iff |y - sy_v| <= r and 2y - hs < sy_v <= 2y
+(columns alike), so a tile of pixels reads a halo with modular addressing
+and multiplies it on the tensor cores (csrc/crf.cu).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -73,3 +78,19 @@ def window_message(q: Optional[torch.Tensor], img: torch.Tensor, sig: float,
                      norm.data_ptr(), b, c, hs, ws, r, sig * sig, stream)
     kernels.launches["crf_window"] += 1
     return acc, norm
+
+
+GEOMETRY_FIELDS = ("n_tiles", "halo_cols", "unit_cols", "row_stride", "units_per_row",
+                   "smem_bytes")
+
+
+def window_geometry(c: int, hs: int, ws: int, r: int) -> Dict[str, int]:
+    """The launch ``window_message`` makes for C channels (0: the
+    normalizer alone) on an (hs, ws) grid at radius r, as csrc/crf.cu picks
+    it: n-tiles of 8 channel columns (the ones column included), halo
+    columns a block reads, columns a staged unit holds, their row stride in
+    shared memory, units a source row, and dynamic shared memory in bytes.
+    Needs the built kernel library (nvcc), not a card."""
+    out = (ctypes.c_int * len(GEOMETRY_FIELDS))()
+    kernels.call("crf", "crf_window_geometry", c, hs, ws, r, ctypes.addressof(out))
+    return dict(zip(GEOMETRY_FIELDS, out))
