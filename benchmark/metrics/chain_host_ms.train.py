@@ -1,0 +1,17 @@
+"""Mean host ms a training step spends in the pseudo-label chain: GradCAM,
+the walk and PAR (``chain.gradcam``, ``chain.walk`` and ``chain.par``, spans
+in ``models/weclip.py::pseudo_label_chain``), over the window's untraced
+steps before the profiled stretch (the program's span records,
+``weclip_tpu_torch/utils/spans.py``)."""
+
+
+def read(run):
+    try:
+        from weclip_tpu_torch.utils import spans
+    except ImportError:       # a program without the recorder
+        return None
+    recs = spans.before_profiled(spans.window(run.untraced_units + run.stretch_units))
+    if not recs:
+        return None
+    names = ("chain.gradcam", "chain.walk", "chain.par")
+    return 1e3 * sum(r.host_s(names) for r in recs) / len(recs)

@@ -1,0 +1,17 @@
+"""Mean host ms a training step spends in the fuse head, the decoder and the
+Gram affinity (the two ``heads`` spans of
+``models/weclip.py::backbone_and_heads``), over the window's untraced steps
+before the profiled stretch (the program's span records,
+``weclip_tpu_torch/utils/spans.py``)."""
+
+
+def read(run):
+    try:
+        from weclip_tpu_torch.utils import spans
+    except ImportError:       # a program without the recorder
+        return None
+    recs = spans.before_profiled(spans.window(run.untraced_units + run.stretch_units))
+    if not recs:
+        return None
+    names = ("heads",)
+    return 1e3 * sum(r.host_s(names) for r in recs) / len(recs)

@@ -53,7 +53,9 @@ def train_parser(default_config: str | None = None) -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--precision", default=None, choices=["bfloat16", "float32"])
     p.add_argument("--profile", default=None, type=str, metavar="START:END",
-                   help="trace these steps with torch.profiler into work_dir/profile")
+                   help="trace these steps with torch.profiler into work_dir/profile: "
+                        "trace.json (Chrome trace) and spans.json (host time and syncs "
+                        "by stage, kernel launches by kernel and shape)")
     p.add_argument("--decoded_cache", default=None, type=str, metavar="DIR",
                    help="pre-decoded .npy image/label cache directory "
                         "(the first epoch decodes and fills it)")

@@ -23,6 +23,8 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
+from weclip_tpu_torch.utils import spans
+
 
 def collate(examples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     """Stack each key of the examples; strings become a string array."""
@@ -157,7 +159,8 @@ class PrefetchLoader:
             yield batch
 
     def __next__(self):
-        return self._get_ordered()
+        with spans.span("input.wait"):
+            return self._get_ordered()
 
     def close(self):
         """Stop the threads (each ends within half a second)."""

@@ -15,7 +15,9 @@ exact lattice on the host or the on-device mean field (refine/crf.py).  In
 a ``torch.distributed`` run each data rank evaluates a strided shard and
 the histograms are summed over the data group (parallel/mesh.py); the ranks
 of a model group run the same batches, which keeps the collectives of the
-split MLPs in step.
+split MLPs in step.  Each batch is an ``eval.batch`` of the program's span
+recorder (utils/spans.py): ``eval.wait``, ``eval.scale1``, ``eval.scale2``
+and ``eval.combine``, and ``eval.prepare`` on the worker thread.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from weclip_tpu_torch.evalx.engine import (EvalSizes, ScaleBatch, make_eval_comb
                                            make_msc_logits)
 from weclip_tpu_torch.models.clip.vit import grid_valid_mask, pos_emb_host
 from weclip_tpu_torch.parallel import mesh as meshlib
+from weclip_tpu_torch.utils import spans
 
 
 def _round_up(x: int, m: int) -> int:
@@ -244,13 +247,15 @@ class Evaluator:
         starts = list(range(0, len(my_idx), bsz))
 
         def prepare(s):
-            examples = [dataset[i] for i in my_idx[s:s + bsz]]
-            n_real = len(examples)
-            while len(examples) < bsz:                    # ragged tail: pad
-                pad = dict(examples[-1])
-                pad["label"] = np.full_like(pad["label"], 255)
-                examples.append(pad)
-            return examples, n_real, self.build_batch(examples)
+            # on the worker thread: recorded, never annotated
+            with spans.span("eval.prepare", annotate=False):
+                examples = [dataset[i] for i in my_idx[s:s + bsz]]
+                n_real = len(examples)
+                while len(examples) < bsz:                    # ragged tail: pad
+                    pad = dict(examples[-1])
+                    pad["label"] = np.full_like(pad["label"], 255)
+                    examples.append(pad)
+                return examples, n_real, self.build_batch(examples)
 
         if save_dir is not None:
             for sub in ("prediction", "prediction_cmap"):
@@ -264,29 +269,36 @@ class Evaluator:
         with cf.ThreadPoolExecutor(max_workers=1) as pool:
             pending = pool.submit(prepare, starts[0]) if starts else None
             for i in it:
-                examples, n_real, built = pending.result()
-                if i + 1 < len(starts):
-                    pending = pool.submit(prepare, starts[i + 1])
-                sb1, sb2, sizes, labels, presents, cls_idx, cls_active = built
-                seg_single, seg_avg1, cam_labels = self.scale1_for(cls_idx.shape[1])(
-                    params, frozen, sb1, presents, sizes, cls_idx, cls_active)
-                seg_avg2 = (self.scale2(params, frozen, sb2, presents, sizes)
-                            if self.msc else seg_avg1)
-                _, pred_msc, hists = self.combine(seg_single, seg_avg1, seg_avg2,
-                                                  cam_labels, labels, sizes, hists)
-                if save_dir is not None:
-                    _save_predictions(save_dir, examples[:n_real], pred_msc)
-                if logits_dir is not None or crf:
-                    msc_logits = self.msc_logits(seg_avg1, seg_avg2, sizes)
-                if logits_dir is not None:
-                    _save_logits(logits_dir, examples[:n_real], seg_single, msc_logits,
-                                 sizes, patch)
-                if crf:
-                    crf_fn = self._crf_jax if crf_impl == "jax" else self._crf_native
-                    preds = crf_fn(msc_logits[:n_real], examples[:n_real], crf_stride)
-                    for ex, pred in zip(examples, preds):
-                        h_crf += _bincount_hist(ex["label"], pred, k)
-        h_single, h_msc, h_cam = (h.cpu() for h in hists)
+                with spans.step("eval.batch"):
+                    with spans.span("eval.wait"):
+                        examples, n_real, built = pending.result()
+                    if i + 1 < len(starts):
+                        pending = pool.submit(prepare, starts[i + 1])
+                    sb1, sb2, sizes, labels, presents, cls_idx, cls_active = built
+                    with spans.span("eval.scale1"):
+                        seg_single, seg_avg1, cam_labels = self.scale1_for(
+                            cls_idx.shape[1])(params, frozen, sb1, presents, sizes, cls_idx,
+                                              cls_active)
+                    with spans.span("eval.scale2"):
+                        seg_avg2 = (self.scale2(params, frozen, sb2, presents, sizes)
+                                    if self.msc else seg_avg1)
+                    with spans.span("eval.combine"):
+                        _, pred_msc, hists = self.combine(seg_single, seg_avg1, seg_avg2,
+                                                          cam_labels, labels, sizes, hists)
+                    if save_dir is not None:
+                        _save_predictions(save_dir, examples[:n_real], pred_msc)
+                    if logits_dir is not None or crf:
+                        msc_logits = self.msc_logits(seg_avg1, seg_avg2, sizes)
+                    if logits_dir is not None:
+                        _save_logits(logits_dir, examples[:n_real], seg_single, msc_logits,
+                                     sizes, patch)
+                    if crf:
+                        crf_fn = self._crf_jax if crf_impl == "jax" else self._crf_native
+                        preds = crf_fn(msc_logits[:n_real], examples[:n_real], crf_stride)
+                        for ex, pred in zip(examples, preds):
+                            h_crf += _bincount_hist(ex["label"], pred, k)
+        with spans.span("eval.readback"):
+            h_single, h_msc, h_cam = (h.cpu() for h in hists)
         if auto_reduce and pc > 1:
             # the global histograms on every rank, in one collective
             summed = meshlib.psum(torch.stack([h_single, h_msc, h_cam,

@@ -9,9 +9,11 @@ the flags, so an edited source or header is rebuilt.  Every C entry point
 returns ``cudaGetLastError()`` after its launches, and ``call`` raises on
 anything but 0.
 
-``launches`` counts kernel launches by kernel name.  Only the wrappers in
-``ops/attention_kernels.py``, ``refine/par_kernels.py`` and
-``refine/crf_kernels.py`` add to it, at the point where they launch.
+``count_launch`` counts kernel launches in the program's recorder
+(``utils/spans.py``) by kernel and shape, and by the stage that launched
+them; ``launches`` is the by-kernel view of those counts.  Only the
+wrappers in ``ops/attention_kernels.py``, ``refine/par_kernels.py`` and
+``refine/crf_kernels.py`` count, at the point where they launch.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Set
+from typing import Dict, Iterable, Optional, Set, Tuple
+
+from weclip_tpu_torch.utils import spans
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -94,18 +98,25 @@ SIGNATURES = {
 }
 
 # kernel name -> launches; see module docstring
-launches: Dict[str, int] = {
-    "attention_fwd_export": 0,   # K1
-    "attention_fwd": 0,          # K2
-    "attention_bwd": 0,          # K3
-    "cross_attention": 0,        # K6
-    "attention_bwd_rect": 0,     # K3-rect
-    "par_affinity": 0,           # K4
-    "par_propagate": 0,          # K5
-    "crf_window": 0,             # K7
-}
+launches = spans.CounterView(spans.RECORDER, spans.LAUNCHES, (
+    "attention_fwd_export",   # K1
+    "attention_fwd",          # K2
+    "attention_bwd",          # K3
+    "cross_attention",        # K6
+    "attention_bwd_rect",     # K3-rect
+    "par_affinity",           # K4
+    "par_propagate",          # K5
+    "crf_window",             # K7
+))
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def count_launch(name: str, shape: Tuple[int, ...], n: int = 1) -> None:
+    """Count ``n`` launches of kernel ``name`` at ``shape``."""
+    if name not in launches:
+        raise KeyError(f"no kernel {name!r} is counted")
+    spans.count(spans.LAUNCHES, n, key=(name, tuple(shape)))
 
 
 def reset_launches() -> None:

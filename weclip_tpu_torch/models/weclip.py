@@ -20,6 +20,7 @@ from weclip_tpu_torch.models.comer import comer_forward, init_comer_params
 from weclip_tpu_torch.ops.resize import resize_bilinear
 from weclip_tpu_torch.refine import affinity as aff
 from weclip_tpu_torch.refine.par import par_refine_auto
+from weclip_tpu_torch.utils import spans
 
 
 class Batch(NamedTuple):
@@ -69,22 +70,27 @@ def backbone_and_heads(params: Dict[str, Any], frozen: Dict[str, Any],
     evaluation engine) may set it.  The heads run at their own (fp32)
     policy, the CoMer branch at the backbone policy.
     Returns (feats, head_out, attn_pred, valid_p)."""
-    feats = vit.vision_forward_frozen(
-        frozen["visual"], batch.img, batch.pos_emb, batch.valid, cfg.clip,
-        policy=policy, with_attn=with_attn, attn_rows=attn_rows)
-    layer_tokens = feats.layer_tokens[:, :, 1:batch.valid.shape[1], :]
-    valid_p = batch.valid[:, 1:].float()
-    hp = head_policy(cfg)
-    fused = heads.fuse_forward(params["head"]["fuse"], layer_tokens, gen, policy=hp,
-                               batch_rows=batch_rows)
+    with spans.span("backbone"):
+        feats = vit.vision_forward_frozen(
+            frozen["visual"], batch.img, batch.pos_emb, batch.valid, cfg.clip,
+            policy=policy, with_attn=with_attn, attn_rows=attn_rows)
+    # two spans of one name: CoMer runs between the fuse head and the decoder
+    with spans.span("heads"):
+        layer_tokens = feats.layer_tokens[:, :, 1:batch.valid.shape[1], :]
+        valid_p = batch.valid[:, 1:].float()
+        hp = head_policy(cfg)
+        fused = heads.fuse_forward(params["head"]["fuse"], layer_tokens, gen, policy=hp,
+                                   batch_rows=batch_rows)
     if "comer" in params and cfg.comer.enabled:
-        fused = fused + comer_forward(params["comer"], batch.img, layer_tokens,
-                                      batch.valid[:, 1:], cfg.comer, policy)
-    seg, dec_attn = heads.decoder_forward(params["head"]["decoder"], fused,
-                                          valid_p=batch.valid[:, 1:], policy=hp,
-                                          allow_kernel=decoder_kernel)
-    head_out = heads.HeadOutputs(seg, fused, dec_attn)
-    attn_pred = aff.gram_affinity(head_out.fused, valid_p)
+        with spans.span("comer"):
+            fused = fused + comer_forward(params["comer"], batch.img, layer_tokens,
+                                          batch.valid[:, 1:], cfg.comer, policy)
+    with spans.span("heads"):
+        seg, dec_attn = heads.decoder_forward(params["head"]["decoder"], fused,
+                                              valid_p=batch.valid[:, 1:], policy=hp,
+                                              allow_kernel=decoder_kernel)
+        head_out = heads.HeadOutputs(seg, fused, dec_attn)
+        attn_pred = aff.gram_affinity(head_out.fused, valid_p)
     return feats, head_out, attn_pred, valid_p
 
 
@@ -112,38 +118,41 @@ def pseudo_label_chain(
     num_bg = frozen["bg_text"].shape[0]
     mc = cls_idx.shape[1]
 
-    text_features = torch.cat([frozen["fg_text"], frozen["bg_text"]], dim=0)
-    text_mask = torch.cat([present_mask.bool(),
-                           torch.ones((b, num_bg), dtype=torch.bool,
-                                      device=present_mask.device)], dim=1)
-    cam_out = gradcam_batch(frozen["visual"], frozen["logit_scale"],
-                            feats.layer_tokens[-1], text_features, text_mask,
-                            feats.valid, num_fg, cfg.clip, policy,
-                            class_idx=cls_idx,
-                            num_patches=batch_valid.shape[1] - 1)
+    with spans.span("chain.gradcam"):
+        text_features = torch.cat([frozen["fg_text"], frozen["bg_text"]], dim=0)
+        text_mask = torch.cat([present_mask.bool(),
+                               torch.ones((b, num_bg), dtype=torch.bool,
+                                          device=present_mask.device)], dim=1)
+        cam_out = gradcam_batch(frozen["visual"], frozen["logit_scale"],
+                                feats.layer_tokens[-1], text_features, text_mask,
+                                feats.valid, num_fg, cfg.clip, policy,
+                                class_idx=cls_idx,
+                                num_patches=batch_valid.shape[1] - 1)
     with torch.no_grad():
-        fused_attn = fuse(cam_out.attn_last)
-        valid_pb = batch_valid[:, 1:].bool()
-        trans = aff.sinkhorn_transition(fused_attn, valid_pb,
-                                        rounds=cfg.cam.sinkhorn_iters)
-        refined = aff.random_walk_cams(cam_out.cams, trans,
-                                       valid_pb.reshape(b, g0, g1), gh, gw,
-                                       cfg.cam.bbox_threshold)
-        normed = _minmax_valid(refined, valid_pb[:, None, :])
-        cam_hw = upsample(normed.reshape(b, mc, g0, g1))
+        with spans.span("chain.walk"):
+            fused_attn = fuse(cam_out.attn_last)
+            valid_pb = batch_valid[:, 1:].bool()
+            trans = aff.sinkhorn_transition(fused_attn, valid_pb,
+                                            rounds=cfg.cam.sinkhorn_iters)
+            refined = aff.random_walk_cams(cam_out.cams, trans,
+                                           valid_pb.reshape(b, g0, g1), gh, gw,
+                                           cfg.cam.bbox_threshold)
+            normed = _minmax_valid(refined, valid_pb[:, None, :])
+            cam_hw = upsample(normed.reshape(b, mc, g0, g1))
 
-        active = cls_active.bool()[:, :, None, None]
-        fg_scores = torch.where(active, cam_hw, torch.full_like(cam_hw, -1.0))
-        max_present = torch.where(active, cam_hw, torch.zeros_like(cam_hw)).amax(
-            dim=1, keepdim=True)
-        bg_score = torch.pow(1.0 - max_present, cfg.cam.bg_exponent)
-        stack = torch.cat([bg_score, fg_scores], dim=1)       # (B, 1+MC, H, W)
+            active = cls_active.bool()[:, :, None, None]
+            fg_scores = torch.where(active, cam_hw, torch.full_like(cam_hw, -1.0))
+            max_present = torch.where(active, cam_hw, torch.zeros_like(cam_hw)).amax(
+                dim=1, keepdim=True)
+            bg_score = torch.pow(1.0 - max_present, cfg.cam.bg_exponent)
+            stack = torch.cat([bg_score, fg_scores], dim=1)       # (B, 1+MC, H, W)
 
-        par_out = par_refine_auto(imgs, stack, cfg.par)
-        idx = torch.argmax(par_out, dim=1)
-        lut = torch.cat([torch.zeros((b, 1), dtype=torch.int64, device=idx.device),
-                         cls_idx.long() + 1], dim=1)
-        return _lut_select(lut, idx), refined
+        with spans.span("chain.par"):
+            par_out = par_refine_auto(imgs, stack, cfg.par)
+            idx = torch.argmax(par_out, dim=1)
+            lut = torch.cat([torch.zeros((b, 1), dtype=torch.int64, device=idx.device),
+                             cls_idx.long() + 1], dim=1)
+            return _lut_select(lut, idx), refined
 
 
 def pseudo_labels(frozen: Dict[str, Any], feats: vit.VisionFeatures,

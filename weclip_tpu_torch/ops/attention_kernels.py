@@ -200,7 +200,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kernels.call("attention", "attn_map_bf16" if bf16 else "attn_map_f32",
                              q.data_ptr(), k.data_ptr(), bias.data_ptr(), stats.data_ptr(),
                              amap.data_ptr(), b, h, l, dh, c_scale, stream)
-    kernels.launches["attention_fwd_export" if export_weights else "attention_fwd"] += 1
+    kernels.count_launch("attention_fwd_export" if export_weights else "attention_fwd",
+                         (b, h, l, dh))
     return out, amap
 
 
@@ -285,7 +286,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lib, fn = "cross_attention", "xattn_bwd_bf16" if bf16 else "xattn_bwd"
         kernels.call(lib, fn, *(t.data_ptr() for t in ins), bias.data_ptr(), *outs,
                      b, h, lq, lk, dh, ctypes.c_float(q_scale), stream)
-    kernels.launches["attention_bwd" if lq == lk else "attention_bwd_rect"] += 1
+    kernels.count_launch("attention_bwd" if lq == lk else "attention_bwd_rect",
+                         (b, h, lq, lk, dh))
     return dq, dk, dv
 
 
@@ -351,7 +353,7 @@ def cross_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kernels.call("cross_attention", "xattn_fwd_bf16", *args, 1, stream)
             else:
                 kernels.call("cross_attention", "xattn_fwd", *args, stream)
-    kernels.launches["cross_attention"] += 1
+    kernels.count_launch("cross_attention", (b, h, lq, lk, dh))
     return out
 
 

@@ -76,7 +76,7 @@ def window_message(q: Optional[torch.Tensor], img: torch.Tensor, sig: float,
         kernels.call("crf", "crf_window", None if q is None else q.data_ptr(),
                      img.data_ptr(), None if acc is None else acc.data_ptr(),
                      norm.data_ptr(), b, c, hs, ws, r, sig * sig, stream)
-    kernels.launches["crf_window"] += 1
+    kernels.count_launch("crf_window", (b, c, hs, ws, r))
     return acc, norm
 
 

@@ -86,7 +86,7 @@ def par_affinity(imgs: torch.Tensor, cfg: ParConfig) -> torch.Tensor:
                      _on_device(tuple(posw), torch.float32, imgs.device).data_ptr(), b, h, w,
                      _on_device(dil, torch.int32, imgs.device).data_ptr(), len(dil),
                      ctypes.c_float(cfg.w1), stream)
-    kernels.launches["par_affinity"] += 1
+    kernels.count_launch("par_affinity", (b, h, w))
     return aff
 
 
@@ -122,5 +122,5 @@ def par_propagate(masks: torch.Tensor, aff: torch.Tensor, cfg: ParConfig,
         kernels.call("par", name, masks.data_ptr(), out.data_ptr(),
                      None if tmp is None else tmp.data_ptr(), aff.data_ptr(),
                      b, c, h, w, dils, len(dil), cfg.num_iter, stream)
-    kernels.launches["par_propagate"] += cfg.num_iter
+    kernels.count_launch("par_propagate", (b, c, h, w), cfg.num_iter)
     return out

@@ -8,6 +8,12 @@ carries gradients: the frozen ViT forward runs without them, and GradCAM's
 own backward (inside the pseudo-label chain) takes gradients of block 11's
 input alone, so its graph never joins the loss's.
 
+Each call is a ``train.step`` of the program's span recorder
+(utils/spans.py): the forward's stages (``backbone``, ``heads``, ``comer``,
+``chain.*``, models/weclip.py), ``loss``, ``backward`` and ``optimizer``,
+with the loader's ``input.wait`` and the batcher's ``input.batch`` before
+it.
+
 Data parallel (``mesh`` of more than one data rank, parallel/mesh.py):
 each data rank runs its slice of the global batch.  The losses' counts are
 summed over the data group first (train/losses.py), so each rank's loss is
@@ -41,6 +47,7 @@ from weclip_tpu_torch.ops.resize import resize_bilinear
 from weclip_tpu_torch.parallel import mesh as meshlib
 from weclip_tpu_torch.train import losses
 from weclip_tpu_torch.train.optimizer import make_optimizer
+from weclip_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass
@@ -145,7 +152,8 @@ def make_loss_fn(cfg: Config, policy: precision.Policy = precision.DEFAULT,
         if dev not in rmasks:
             rmasks[dev] = torch.from_numpy(rmask_np).to(dev)
         labels = out.cam_labels.detach() if pseudo is None else pseudo
-        return train_losses(cfg, out, labels, rmasks[dev], reduce)
+        with spans.span("loss"):
+            return train_losses(cfg, out, labels, rmasks[dev], reduce)
 
     return loss_fn
 
@@ -183,19 +191,22 @@ def make_train_step(cfg: Config, policy: precision.Policy = precision.DEFAULT,
                    rng: Optional[int] = None, cls_idx=None, cls_active=None,
                    extra_iter_num: int = 0, pseudo: Optional[torch.Tensor] = None
                    ) -> Tuple[TrainState, StepMetrics]:
-        require_seg_trans = (state.step + 1 + extra_iter_num) > cfg.train.seg_trans_start_iter
-        gen = (None if rng is None
-               else step_generator(rng, state.step, batch.img.device))
-        with torch.enable_grad():
-            total, metrics = loss_fn(state.params, frozen, batch, require_seg_trans,
-                                     gen, cls_idx, cls_active, pseudo)
-            state.optimizer.zero_grad(set_to_none=True)
-            total.backward()
-        if dp:
-            all_reduce_grads(param_leaves(state.params), mesh.data_group)
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        return state, metrics
+        with spans.step("train.step"):
+            require_seg_trans = (state.step + 1 + extra_iter_num) > cfg.train.seg_trans_start_iter
+            gen = (None if rng is None
+                   else step_generator(rng, state.step, batch.img.device))
+            with torch.enable_grad():
+                total, metrics = loss_fn(state.params, frozen, batch, require_seg_trans,
+                                         gen, cls_idx, cls_active, pseudo)
+                with spans.span("backward"):
+                    state.optimizer.zero_grad(set_to_none=True)
+                    total.backward()
+            with spans.span("optimizer"):
+                if dp:
+                    all_reduce_grads(param_leaves(state.params), mesh.data_group)
+                state.optimizer.step()
+                state.scheduler.step()
+            state.step += 1
+            return state, metrics
 
     return train_step

@@ -19,7 +19,10 @@ does.
 or random weights where there is none.  Each logged window also goes to
 ``work_dir.dir/work_dir.tb_logger_dir/scalars.jsonl`` (utils/tb.py), and
 ``profile_steps`` traces a range of steps with ``torch.profiler`` into
-``work_dir.dir/profile``.
+``work_dir.dir/profile``: ``trace.json`` (a Chrome trace, the program's
+stages as its top-level host events) and ``spans.json`` (the recorder's
+records of the traced steps, utils/spans.py: host time by stage, host
+syncs by stage and source line, kernel launches by kernel and shape).
 
 Under ``torchrun`` (``mesh.data_parallel`` x ``mesh.model_parallel``
 ranks, parallel/mesh.py) every data rank reads its own shard of each epoch
@@ -35,6 +38,7 @@ resumes from it, and validation sums its histograms over the data group.
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import time
@@ -54,6 +58,7 @@ from weclip_tpu_torch.models.clip.vit import pos_emb_host
 from weclip_tpu_torch.parallel import mesh as meshlib
 from weclip_tpu_torch.train import checkpoint
 from weclip_tpu_torch.train import step as step_mod
+from weclip_tpu_torch.utils import spans
 
 log = logging.getLogger("weclip_tpu_torch")
 
@@ -106,19 +111,20 @@ def make_batcher(cfg: Config, frozen: Dict, device,
     dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
     def to_device(host_batch):
-        b = host_batch["img"].shape[0]
-        batch = weclip.Batch(
-            img=dev(host_batch["img"].astype(np.float32)), pos_emb=pos_emb,
-            valid=torch.ones((b, grid * grid + 1), dtype=torch.bool, device=device),
-            gh=torch.full((b,), grid, device=device),
-            gw=torch.full((b,), grid, device=device),
-            present_mask=dev(host_batch["present_mask"]).bool())
-        present = host_batch["present_mask"]
-        mc = pick_bucket(present, buckets)
-        if meshlib.dp_only(mesh):
-            mc = int(meshlib.pmax(torch.tensor(mc)))
-        ci, ca = compact_classes(present, mc)
-        return batch, dev(ci), dev(ca)
+        with spans.span("input.batch"):
+            b = host_batch["img"].shape[0]
+            batch = weclip.Batch(
+                img=dev(host_batch["img"].astype(np.float32)), pos_emb=pos_emb,
+                valid=torch.ones((b, grid * grid + 1), dtype=torch.bool, device=device),
+                gh=torch.full((b,), grid, device=device),
+                gw=torch.full((b,), grid, device=device),
+                present_mask=dev(host_batch["present_mask"]).bool())
+            present = host_batch["present_mask"]
+            mc = pick_bucket(present, buckets)
+            if meshlib.dp_only(mesh):
+                mc = int(meshlib.pmax(torch.tensor(mc)))
+            ci, ca = compact_classes(present, mc)
+            return batch, dev(ci), dev(ca)
 
     return to_device
 
@@ -145,7 +151,9 @@ def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cu
     Checkpoints go to ``work_dir.dir/work_dir.ckpt_dir``.  Logs the window
     means of the losses and the pseudo-label accuracy every
     ``train.log_iters`` steps, and the validation scores.
-    ``profile_steps=(start, end)`` traces steps start..end."""
+    ``profile_steps=(start, end)`` traces steps start..end into
+    ``work_dir.dir/profile/trace.json`` and writes their span records to
+    ``spans.json`` beside it."""
     pc = cfg.precision
     policy = precision.make_policy(pc.compute_dtype, pc.param_dtype, pc.softmax_dtype)
     mesh = meshlib.make_mesh(cfg.mesh.data_parallel, cfg.mesh.model_parallel)
@@ -185,12 +193,12 @@ def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cu
     from weclip_tpu_torch.utils.tb import ScalarWriter
     writer = (ScalarWriter(os.path.join(cfg.work_dir.dir, cfg.work_dir.tb_logger_dir))
               if lead else None)
-    prof = None
+    prof, spans_from = None, 0
     msum, n_window, t_window = None, 0, time.perf_counter()
     try:
         for n_iter in range(state.step, total):
             if lead and profile_steps and n_iter == profile_steps[0]:
-                prof = _start_profile(device)
+                prof, spans_from = _start_profile(device), spans.RECORDER.closed
             batch, ci, ca = to_device(next(loader))
             state, m = step_fn(state, frozen, batch, rng=cfg.train.seed + 1,
                                cls_idx=ci, cls_active=ca,
@@ -199,7 +207,7 @@ def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cu
                 *(a + b for a, b in zip(msum, m)))
             n_window += 1
             if prof is not None and n_iter == profile_steps[1]:
-                prof = _stop_profile(prof, cfg.work_dir.dir)
+                prof = _stop_profile(prof, cfg.work_dir.dir, spans_from)
             if lead and ((n_iter + 1) % cfg.train.log_iters == 0 or n_iter + 1 == total):
                 means = step_mod.StepMetrics(*(float(x) / n_window for x in msum))
                 rate = n_window * bsz * mesh.data / (time.perf_counter() - t_window)
@@ -226,7 +234,7 @@ def train(cfg: Config, dataset=None, max_steps: Optional[int] = None, device="cu
         if writer is not None:
             writer.close()
         if prof is not None:
-            _stop_profile(prof, cfg.work_dir.dir)
+            _stop_profile(prof, cfg.work_dir.dir, spans_from)
     save_checkpoint(ckpt_dir, total, state, lead)
     return state
 
@@ -249,15 +257,20 @@ def _start_profile(device):
     return prof
 
 
-def _stop_profile(prof, work_dir: str) -> None:
+def _stop_profile(prof, work_dir: str, spans_from: int) -> None:
     """Stops the trace and writes it as ``<work_dir>/profile/trace.json``
-    (a Chrome trace); returns None."""
+    (a Chrome trace), and the recorder's records closed since it had closed
+    ``spans_from`` that the profiler saw as ``spans.json``; returns None."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     prof.stop()
+    spans.RECORDER.notice()
     out = os.path.join(work_dir, "profile")
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    with open(os.path.join(out, "spans.json"), "w") as f:
+        json.dump([r.to_json() for r in spans.profiled(spans.RECORDER.since(spans_from))],
+                  f, indent=1)
     log.info("profile written to %s", out)
     return None
 
