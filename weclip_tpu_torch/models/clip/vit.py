@@ -21,9 +21,10 @@ import torch.nn.functional as F
 
 from weclip_tpu_torch.core import precision
 from weclip_tpu_torch.core.config import ClipConfig
+from weclip_tpu_torch.models.clip.graphs import ForwardGraphs
 from weclip_tpu_torch.ops.attention import MhaParams, mha_auto, mha_with_weights
 from weclip_tpu_torch.ops.resize import _linear_matrix, upsample_pos_emb
-from weclip_tpu_torch.parallel.mesh import Mesh, enter_model, leave_model
+from weclip_tpu_torch.parallel.mesh import Mesh, enter_model, leave_model, mesh_of
 
 Params = Dict[str, Any]
 
@@ -202,6 +203,26 @@ class VisionFeatures(NamedTuple):
     valid: torch.Tensor          # (B, L) bool
 
 
+# the frozen forward's CUDA graphs, one per input signature (graphs.py)
+FROZEN_GRAPHS = ForwardGraphs("backbone_graph")
+
+
+def graph_key(params: Params, img: torch.Tensor, pos_emb: torch.Tensor,
+              valid: torch.Tensor, cfg: ClipConfig, policy: precision.Policy,
+              with_attn: bool, attn_rows: int) -> Optional[Tuple]:
+    """The signature the frozen forward's CUDA graph is held under: the
+    device, the inputs' shapes and dtypes, the map export, the policy, the
+    configuration and the storage of every parameter (a new frozen state
+    captures anew).  None, so eager, for blocks split over a model group
+    (``p["tp"]``: a collective inside)."""
+    if mesh_of(params["blocks"]) is not None:
+        return None
+    shapes = tuple((tuple(t.shape), t.dtype) for t in (img, pos_emb, valid))
+    storage = []
+    tree_map(lambda t: storage.append(t.data_ptr()), params)
+    return (str(img.device), shapes, with_attn, attn_rows, policy, cfg, tuple(storage))
+
+
 @torch.no_grad()
 def vision_forward_frozen(
     params: Params,
@@ -220,7 +241,33 @@ def vision_forward_frozen(
     leading axis).  ``attn_rows=k`` exports maps for the first k rows only:
     the msc-flip engine's flipped half never consumes its maps, so those
     rows run the export-free kernel (K2) and the first k the export kernel
-    (K1)."""
+    (K1).
+
+    On CUDA the forward is replayed as a CUDA graph from the second call
+    of a signature (``graph_key``; ``FROZEN_GRAPHS``, graphs.py), the same
+    kernels on the same inputs, so the same numbers.  **Output lifetime**:
+    from a replay, ``layer_tokens`` and ``layer_attn`` are the graph's own
+    tensors, valid until the next call with the same signature, on the same
+    stream; ``valid`` is the caller's.  Every caller in the port consumes
+    them before that (the training step's backward, the evaluation scale's
+    chain, ``cam/highres.py``); a caller that keeps them longer clones
+    them.  CPU tensors and a block split over a model group run eager and
+    return fresh tensors."""
+    k = attn_rows if (with_attn and attn_rows is not None) else img.shape[0]
+    if not img.is_cuda:
+        return _forward_frozen(params, img, pos_emb, valid, cfg, policy, with_attn, k)
+    key = graph_key(params, img, pos_emb, valid, cfg, policy, with_attn, k)
+    feats = FROZEN_GRAPHS.run(
+        key, lambda i, p, v: _forward_frozen(params, i, p, v, cfg, policy, with_attn, k),
+        (img, pos_emb, valid))
+    return feats._replace(valid=valid)
+
+
+def _forward_frozen(params: Params, img: torch.Tensor, pos_emb: torch.Tensor,
+                    valid: torch.Tensor, cfg: ClipConfig, policy: precision.Policy,
+                    with_attn: bool, k: int) -> VisionFeatures:
+    """``vision_forward_frozen`` as it runs eager; maps for the first ``k``
+    rows."""
     b = img.shape[0]
     x = patchify(img, params["conv1_w"], cfg.patch_size, policy)
     cls = params["class_embedding"].float()[None, None, :].expand(b, 1, x.shape[-1])
@@ -232,7 +279,6 @@ def vision_forward_frozen(
 
     n_frozen = cfg.vision_layers - 1
     blocks = [block_params(params["blocks"], i) for i in range(n_frozen)]
-    k = attn_rows if (with_attn and attn_rows is not None) else b
 
     if with_attn and k < b:
         x1, x2, v1, v2 = x[:k], x[k:], valid[:k], valid[k:]

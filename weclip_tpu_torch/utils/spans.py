@@ -18,6 +18,9 @@ it).  It keeps a bounded ring of per-step records:
   the innermost open span of the calling thread and, with ``key``, by that
   key too (kernel launches by kernel and shape).  ``kernels.launches`` is
   the by-kernel view of the ``launches`` counter's totals (``CounterView``).
+  Inside ``hold_counts()`` the calling thread's counts go to a list instead
+  (a CUDA graph's capture, whose launches count at each replay:
+  ``models/clip/graphs.py``).
 - While a profiler records, every host-device synchronization the program
   forces counts as ``sync`` (``torch.cuda.set_sync_debug_mode`` set to warn,
   its warnings caught), keyed by span and by the source line that forced it.
@@ -30,6 +33,7 @@ recording during it, the host clock at its close, host seconds by (span, parent)
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -162,6 +166,10 @@ class Recorder:
         return _Span(self, kind, False, True)
 
     def count(self, name: str, n: int = 1, key=None) -> None:
+        held = getattr(self._local, "held", None)
+        if held is not None:
+            held.append((name, n, key))
+            return
         stack = self._stack()
         rec = self.open
         k = (name, stack[-1].name if stack else None)
@@ -171,6 +179,17 @@ class Recorder:
             rec.keyed[k] = rec.keyed.get(k, 0) + n
             t = self.totals.setdefault(name, {})
             t[key] = t.get(key, 0) + n
+
+    @contextlib.contextmanager
+    def hold_counts(self):
+        """The calling thread's counts inside, as a list of (name, n, key)
+        in order, instead of recorded."""
+        outer = getattr(self._local, "held", None)
+        self._local.held = held = []
+        try:
+            yield held
+        finally:
+            self._local.held = outer
 
     def window(self, n: int) -> List[Record]:
         """The last ``n`` closed records, oldest first."""
@@ -301,6 +320,10 @@ def step(kind: str) -> _Span:
 
 def count(name: str, n: int = 1, key=None) -> None:
     RECORDER.count(name, n, key)
+
+
+def hold_counts():
+    return RECORDER.hold_counts()
 
 
 def window(n: int) -> List[Record]:
