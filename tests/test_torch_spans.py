@@ -1,10 +1,11 @@
 """The program's span and counter recorder (weclip_tpu_torch/utils/spans.py):
 step grouping, nesting and self time, the ring's bound, annotations only
 under a profiler and as its top-level host events, syncs counted under the
-profiler only, the by-kernel launch view, the benchmark's readers of the
-records, and the spans of a training step, an evaluation batch and the
-trainer's profile export on the CPU.  One test, marked ``cuda``, counts the
-walk's synchronizations on the card; run it there with
+profiler only, the by-kernel launch view, device-timed spans (nothing on
+the CPU), the benchmark's readers of the records, and the spans of a
+training step, an evaluation batch and the trainer's profile export on the
+CPU.  Two tests, marked ``cuda``, count the walk's synchronizations and time
+a device span against its kernels on the card; run them there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_spans.py``."""
 
 import inspect
@@ -320,6 +321,104 @@ def test_readers_read_nothing_from_a_program_without_the_recorder(metric, monkey
     assert Spec().metric_reader(metric)(run) is None
 
 
+# metric -> the device-timed span it reads
+DEVICE_READERS = {"backbone_device_ms.eval": "backbone",
+                  "gradcam_device_ms.eval": "chain.gradcam"}
+
+
+def _device_ring(clock, name, before, stretch, after, unresolved=()):
+    """An evaluation ring whose untraced batch i before the stretch spent
+    (1 + i) ms of device time in two calls of ``name``; batches listed in
+    ``unresolved`` hold none yet, and the stretch's and later batches hold
+    100 ms (which no reader may take)."""
+    r = spans.Recorder()
+    for part, n in enumerate((before, stretch, after)):
+        for i in range(n):
+            with r.step("eval.batch"):
+                with r.span("eval.scale1"):
+                    with r.span(name):
+                        clock.t += 1e-3
+                if part == 1:
+                    r.open.profiled = True
+                if part or i not in unresolved:
+                    s = 0.1 if part else 1e-3 * (1 + i)
+                    r.open.device[(name, "eval.scale1")] = [s, 2]
+    return r
+
+
+@pytest.mark.parametrize("metric", sorted(DEVICE_READERS))
+def test_each_device_reader_takes_the_resolved_batches_before_the_stretch(
+        metric, clock, monkeypatch):
+    from benchmark.spec import Spec
+    spec = Spec()
+    entry = next(m for m in spec.bench["per_layer"] if m["name"] == metric)
+    assert (entry["source"], entry["unit"], entry["layer"], entry["moves"]) == (
+        "program_span", "ms", "model", "eval_images_per_s")
+    assert entry["workloads"] == ["voc-eval", "comer-eval", "vitl14-eval"]
+    name = DEVICE_READERS[metric]
+    run = types.SimpleNamespace(untraced_units=6, stretch_units=3)
+    monkeypatch.setattr(spans, "RECORDER", _device_ring(clock, name, 4, 3, 2))
+    assert spec.metric_reader(metric)(run) == pytest.approx(2.5)
+    # a batch whose pair has not resolved is left out, not read as 0
+    monkeypatch.setattr(spans, "RECORDER",
+                        _device_ring(clock, name, 4, 3, 2, unresolved=(3,)))
+    assert spec.metric_reader(metric)(run) == pytest.approx(2.0)
+    # another span's device time is not read
+    other = "chain.gradcam" if name == "backbone" else "backbone"
+    monkeypatch.setattr(spans, "RECORDER", _device_ring(clock, other, 4, 3, 2))
+    assert spec.metric_reader(metric)(run) is None
+
+
+@pytest.mark.parametrize("metric", sorted(DEVICE_READERS))
+def test_device_readers_read_nothing_from_records_without_device_time(metric, clock,
+                                                                       monkeypatch):
+    """A program whose records have no device time (the recorder before it
+    timed spans on the card), and one without the recorder."""
+    from benchmark.spec import Spec
+    r = spans.Recorder()
+    for _ in range(6):
+        with r.step("eval.batch"):
+            with r.span(DEVICE_READERS[metric]):
+                clock.t += 1e-3
+    # the earlier recorder's records: host spans and counts alone
+    old = [types.SimpleNamespace(kind=x.kind, profiled=x.profiled, spans=x.spans,
+                                 counts=x.counts, keyed=x.keyed) for x in r.records]
+    r.records.clear()
+    r.records.extend(old)
+    monkeypatch.setattr(spans, "RECORDER", r)
+    run = types.SimpleNamespace(untraced_units=6, stretch_units=0)
+    assert Spec().metric_reader(metric)(run) is None
+    monkeypatch.setitem(sys.modules, "weclip_tpu_torch.utils.spans", None)
+    assert Spec().metric_reader(metric)(run) is None
+
+
+def test_device_spans_on_the_cpu_record_nothing_and_add_no_sync(clock):
+    """Without a card in use a device-timed span is a host span: no event,
+    no device time, nothing pending; under a profiler it counts no sync."""
+    r = spans.Recorder()
+    x = torch.randn(64, 64)
+    prof = profile(activities=[ProfilerActivity.CPU])
+    prof.start()
+    try:
+        with r.step("eval.batch"):
+            with r.span("eval.scale1"):
+                with r.span("backbone", device=x.is_cuda):
+                    x @ x
+                    clock.t += 2e-3
+                with r.span("chain.gradcam", device=True):
+                    x @ x
+                    clock.t += 1e-3
+    finally:
+        prof.stop()
+        r.notice()
+    rec = r.records[0]
+    assert rec.profiled and rec.device == {} and r._pending == []
+    assert rec.count(spans.SYNC) == 0
+    assert rec.spans[("backbone", "eval.scale1")][0] == pytest.approx(2e-3)
+    assert rec.device_s(("backbone", "chain.gradcam")) is None
+    assert rec.to_json()["device"] == []
+
+
 # -- the program's spans on the CPU -------------------------------------------
 
 def _tiny_cfg(work_dir="unused"):
@@ -468,3 +567,44 @@ def test_the_sync_counter_counts_the_walks_loop_on_the_card(card, monkeypatch):
     assert rec.keyed[(spans.SYNC, f"refine/bbox.py:{line}")] == len(reads)
     assert rec.counts[(spans.SYNC, "input.batch")] == 1
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_a_device_span_times_at_least_its_kernels_and_forces_no_sync(card):
+    """The event pair around a span covers the work it queued: at least the
+    time the same products take between two events of their own.  Under a
+    profiler the span counts no sync, and its pair resolves only once its
+    end has completed."""
+    a = torch.randn((4096, 4096), device=card)
+    for _ in range(3):
+        a @ a
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        a @ a
+    end.record()
+    torch.cuda.synchronize()
+    alone_s = 1e-3 * start.elapsed_time(end)
+    assert alone_s > 1e-3
+    r = spans.Recorder()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    try:
+        with r.step("eval.batch"):
+            with r.span("eval.scale1"):
+                with r.span("backbone", device=a.is_cuda):
+                    for _ in range(20):
+                        a @ a
+        rec = r.records[0]
+        pending = len(r._pending)
+    finally:
+        torch.cuda.synchronize()
+        prof.stop()
+        r.notice()
+    assert rec.count(spans.SYNC) == 0
+    assert pending == 1 and rec.device == {}
+    r.resolve()
+    assert r._pending == []
+    seconds, calls = rec.device[("backbone", "eval.scale1")]
+    assert calls == 1 and seconds >= 0.9 * alone_s
+    assert rec.device_s(("backbone",)) == seconds

@@ -172,6 +172,18 @@ class Config:
     work_dir: WorkDirConfig = field(default_factory=WorkDirConfig)
 
 
+def crop_grid(cfg: Config) -> int:
+    """The training crop's token grid side, ``crop_size / patch_size``.
+    Raises where the crop is not a multiple of the patch: the patch grid
+    would cut the crop's last pixels off."""
+    crop, patch = cfg.dataset.crop_size, cfg.clip.patch_size
+    if crop % patch:
+        raise ValueError(f"dataset.crop_size {crop} is not a multiple of clip.patch_size "
+                         f"{patch}: take a multiple, such as {crop // patch * patch} or "
+                         f"{(crop // patch + 1) * patch}")
+    return crop // patch
+
+
 def _apply(dc: Any, data: dict) -> Any:
     """Recursively overlay a plain dict onto a dataclass instance."""
     updates = {}

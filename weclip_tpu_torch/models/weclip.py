@@ -70,7 +70,7 @@ def backbone_and_heads(params: Dict[str, Any], frozen: Dict[str, Any],
     evaluation engine) may set it.  The heads run at their own (fp32)
     policy, the CoMer branch at the backbone policy.
     Returns (feats, head_out, attn_pred, valid_p)."""
-    with spans.span("backbone"):
+    with spans.span("backbone", device=batch.img.is_cuda):
         feats = vit.vision_forward_frozen(
             frozen["visual"], batch.img, batch.pos_emb, batch.valid, cfg.clip,
             policy=policy, with_attn=with_attn, attn_rows=attn_rows)
@@ -118,7 +118,7 @@ def pseudo_label_chain(
     num_bg = frozen["bg_text"].shape[0]
     mc = cls_idx.shape[1]
 
-    with spans.span("chain.gradcam"):
+    with spans.span("chain.gradcam", device=batch_valid.is_cuda):
         text_features = torch.cat([frozen["fg_text"], frozen["bg_text"]], dim=0)
         text_mask = torch.cat([present_mask.bool(),
                                torch.ones((b, num_bg), dtype=torch.bool,

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from weclip_tpu_torch.core import precision
-from weclip_tpu_torch.core.config import Config
+from weclip_tpu_torch.core.config import Config, crop_grid
 from weclip_tpu_torch.models import weclip
 from weclip_tpu_torch.ops.resize import resize_bilinear
 from weclip_tpu_torch.parallel import mesh as meshlib
@@ -42,7 +42,7 @@ def make_seg_train_step(cfg: Config, policy: precision.Policy = precision.DEFAUL
     the ranks, ``batch`` and ``label`` this rank's slice, ``frozen``
     sharded over the model axis where the mesh has one."""
     crop = cfg.dataset.crop_size
-    g = crop // cfg.clip.patch_size
+    g = crop_grid(cfg)
     dp = meshlib.dp_only(mesh)
     reduce = functools.partial(meshlib.psum, group=mesh.data_group) if dp else None
 

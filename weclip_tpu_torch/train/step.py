@@ -40,7 +40,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from weclip_tpu_torch.core import precision
-from weclip_tpu_torch.core.config import Config
+from weclip_tpu_torch.core.config import Config, crop_grid
 from weclip_tpu_torch.models import weclip
 from weclip_tpu_torch.models.clip import vit
 from weclip_tpu_torch.ops.resize import resize_bilinear
@@ -106,7 +106,7 @@ def train_losses(cfg: Config, out: weclip.ForwardOutputs, pseudo: torch.Tensor,
     data-parallel ranks) the loss is this rank's share of the global-batch
     loss and the metrics are global."""
     crop = cfg.dataset.crop_size
-    g = crop // cfg.clip.patch_size
+    g = crop_grid(cfg)
     b = out.seg.shape[0]
     seg_hw = resize_bilinear(out.seg.reshape(b, g, g, -1).permute(0, 3, 1, 2),
                              crop, crop)                          # (B, K, H, W)
@@ -136,7 +136,7 @@ def make_loss_fn(cfg: Config, policy: precision.Policy = precision.DEFAULT,
     batch (every rank the same size) and the loss its share."""
     dp = meshlib.dp_only(mesh)
     reduce = functools.partial(meshlib.psum, group=mesh.data_group) if dp else None
-    g = cfg.dataset.crop_size // cfg.clip.patch_size
+    g = crop_grid(cfg)
     rmask_np = losses.radius_mask(g, g, cfg.train.radius)
     rmasks: Dict[Any, torch.Tensor] = {}
 

@@ -49,7 +49,7 @@ import torch
 
 from weclip_tpu_torch.core import precision
 from weclip_tpu_torch.core.compaction import compact_classes, pick_bucket
-from weclip_tpu_torch.core.config import Config
+from weclip_tpu_torch.core.config import Config, crop_grid
 from weclip_tpu_torch.data.loader import PrefetchLoader
 from weclip_tpu_torch.models import weclip
 from weclip_tpu_torch.models.clip import loader as clip_loader
@@ -103,7 +103,7 @@ def make_batcher(cfg: Config, frozen: Dict, device,
     the batch's present classes compacted into the smallest class bucket
     that holds them (core/compaction.py); over a data-parallel ``mesh``,
     the largest bucket of any rank, so the ranks agree on one."""
-    grid = cfg.dataset.crop_size // cfg.clip.patch_size
+    grid = crop_grid(cfg)
     pe_table = frozen["visual"]["positional_embedding"].float().cpu().numpy()
     pos_emb = torch.from_numpy(pos_emb_host(pe_table, grid, grid, grid, grid))[None].to(device)
     num_fg = cfg.dataset.num_classes - 1

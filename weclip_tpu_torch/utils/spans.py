@@ -24,11 +24,20 @@ it).  It keeps a bounded ring of per-step records:
 - While a profiler records, every host-device synchronization the program
   forces counts as ``sync`` (``torch.cuda.set_sync_debug_mode`` set to warn,
   its warnings caught), keyed by span and by the source line that forced it.
+- ``span(name, device=True)`` (a caller whose work is on the card) also
+  records a CUDA event pair on the current stream around the span: the
+  device seconds between the two events, which include any gap in which
+  the device waited for the host.  A pair is resolved only once its end
+  event has completed (``query()``, which does not wait), at a later device
+  span's exit or step close, and its seconds go to the record the span
+  closed in, so timing a span forces no host sync.  Nothing is recorded
+  while the current stream is being captured into a CUDA graph.
 
 A record holds the step's kind and index, whether a profiler was seen
 recording during it, the host clock at its close, host seconds by (span, parent) in total and self
-(total less the spans nested in it), calls, and the counts.  The ring holds
-``RING`` records, more than a benchmark window's steps or batches.
+(total less the spans nested in it), calls, device seconds and calls by
+(span, parent) where the span was device-timed, and the counts.  The ring
+holds ``RING`` records, more than a benchmark window's steps or batches.
 """
 
 from __future__ import annotations
@@ -56,7 +65,7 @@ _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 class Record:
     """One step's spans and counts."""
 
-    __slots__ = ("kind", "index", "profiled", "end_s", "spans", "counts", "keyed")
+    __slots__ = ("kind", "index", "profiled", "end_s", "spans", "device", "counts", "keyed")
 
     def __init__(self):
         self.kind: Optional[str] = None
@@ -64,6 +73,7 @@ class Record:
         self.profiled = False
         self.end_s = 0.0            # the host clock when the step closed
         self.spans: Dict[Tuple[str, Optional[str]], List[float]] = {}  # -> [total, self, calls]
+        self.device: Dict[Tuple[str, Optional[str]], List[float]] = {}  # -> [seconds, calls]
         self.counts: Dict[Tuple[str, Optional[str]], int] = {}        # (counter, span) -> n
         self.keyed: Dict[Tuple[str, object], int] = {}                # (counter, key) -> n
 
@@ -71,6 +81,13 @@ class Record:
         """Total host seconds of the spans named in ``names``."""
         names = set(names)
         return sum(v[0] for (n, _), v in self.spans.items() if n in names)
+
+    def device_s(self, names: Iterable[str]) -> Optional[float]:
+        """Device seconds of the device-timed spans named in ``names``; None
+        where none of them was resolved into this record."""
+        names = set(names)
+        got = [v[0] for (n, _), v in self.device.items() if n in names]
+        return sum(got) if got else None
 
     def count(self, counter: str) -> int:
         return sum(n for (c, _), n in self.counts.items() if c == counter)
@@ -80,6 +97,8 @@ class Record:
                 "end_s": self.end_s,
                 "spans": [{"name": n, "parent": p, "total_s": v[0], "self_s": v[1],
                            "calls": int(v[2])} for (n, p), v in self.spans.items()],
+                "device": [{"name": n, "parent": p, "total_s": v[0], "calls": int(v[1])}
+                           for (n, p), v in self.device.items()],
                 "counts": [{"counter": c, "span": s, "n": n}
                            for (c, s), n in self.counts.items()],
                 "keyed": [{"counter": c, "key": _key_text(k), "n": n}
@@ -91,12 +110,14 @@ def _key_text(key) -> str:
 
 
 class _Span:
-    __slots__ = ("rec", "name", "annotate", "watch", "closes", "parent", "child", "rf",
-                 "t0")
+    __slots__ = ("rec", "name", "annotate", "watch", "closes", "device", "parent", "child",
+                 "rf", "ev", "t0")
 
-    def __init__(self, recorder: "Recorder", name: str, annotate: bool, closes: bool):
+    def __init__(self, recorder: "Recorder", name: str, annotate: bool, closes: bool,
+                 device: bool = False):
         self.rec, self.name, self.annotate, self.closes = recorder, name, annotate, closes
         self.watch = annotate or closes
+        self.device = device
 
     def __enter__(self):
         r = self.rec
@@ -113,6 +134,7 @@ class _Span:
         self.parent = stack[-1] if stack else None
         self.child = 0.0
         stack.append(self)
+        self.ev = r._device_start() if self.device else None
         self.t0 = time.perf_counter()
         return self
 
@@ -134,6 +156,8 @@ class _Span:
             v[0] += dur
             v[1] += dur - self.child
             v[2] += 1
+        if self.ev is not None:
+            r._device_end(rec, key, self.ev)
         if self.watch:
             r.notice()
         if self.closes:
@@ -155,11 +179,16 @@ class Recorder:
         self._caught = None
         self._show = None
         self._sync_mode = None
+        # device-timed spans whose end event has not completed:
+        # (record, (span, parent), start event, end event), oldest first
+        self._pending: List[tuple] = []
 
-    def span(self, name: str, annotate: bool = True) -> _Span:
+    def span(self, name: str, annotate: bool = True, device: bool = False) -> _Span:
         """A stage.  ``annotate=False``: a span of a thread other than the
-        profiled one, which neither annotates nor watches the profiler."""
-        return _Span(self, name, annotate, False)
+        profiled one, which neither annotates nor watches the profiler.
+        ``device=True``: the span's work is on the card, so its device time
+        is recorded too (module docstring)."""
+        return _Span(self, name, annotate, False, device)
 
     def step(self, kind: str) -> _Span:
         """The step boundary: closes the open record as a step of ``kind``."""
@@ -200,6 +229,21 @@ class Recorder:
         the ring)."""
         return self.window(min(self.closed - closed, len(self.records)))
 
+    def resolve(self) -> None:
+        """Move the device time of every pending pair whose end event has
+        completed into the record its span closed in; waits for nothing."""
+        still = []
+        for rec, key, start, end in self._pending:
+            if not end.query():
+                still.append((rec, key, start, end))
+                continue
+            v = rec.device.get(key)
+            if v is None:
+                v = rec.device[key] = [0.0, 0]
+            v[0] += 1e-3 * start.elapsed_time(end)
+            v[1] += 1
+        self._pending = still
+
     def notice(self) -> None:
         """Read the profiler's flag: mark the open record and start or stop
         counting synchronizations (every watching span does this at entry
@@ -217,7 +261,25 @@ class Recorder:
             self._local.stack = []
             return self._local.stack
 
+    def _device_start(self) -> Optional["torch.cuda.Event"]:
+        """The start event of a device-timed span, recorded on the current
+        stream; None without a card in use or inside a graph's capture."""
+        if not torch.cuda.is_initialized() or torch.cuda.is_current_stream_capturing():
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _device_end(self, rec: Record, key: Tuple[str, Optional[str]],
+                    start: "torch.cuda.Event") -> None:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self._pending.append((rec, key, start, end))
+        self.resolve()
+
     def _close(self, kind: str) -> None:
+        if self._pending:
+            self.resolve()
         rec = self.open
         rec.kind = kind
         rec.end_s = time.perf_counter()
@@ -310,8 +372,8 @@ class CounterView(MutableMapping):
 RECORDER = Recorder()
 
 
-def span(name: str, annotate: bool = True) -> _Span:
-    return RECORDER.span(name, annotate)
+def span(name: str, annotate: bool = True, device: bool = False) -> _Span:
+    return RECORDER.span(name, annotate, device)
 
 
 def step(kind: str) -> _Span:
