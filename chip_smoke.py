@@ -26,7 +26,9 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
    kernel's cost), and K4/K5 at dilation sets past the shipped
    one ((1, 2, 4, 8, 12, 24, 32, 48), (5,), (1, 2, 64)) on a 20 x 28 image
    and the eval canvas, each checked, timed and bounded the same way
-   (``check_widths``);
+   (``check_widths``); then the frozen block's three fused passes
+   (``csrc/block_epilogue.cu``) at ``vitl14-eval``'s scale-1 shape against
+   their plain twins (``check_block_epilogue``);
 4. ``WeCLIPPipeline(device="cuda")`` at full ViT-B/16 width with seeded
    random weights: ``pseudo_label_batch`` and ``segment_batch`` (msc +
    flip) on 8 synthetic VOC-sized images; then one image at the fp32
@@ -2511,6 +2513,87 @@ def check_crf_kernel(records, reps: int = 5):
     return times
 
 
+# the frozen block's passes at vitl14-eval's scale-1 shape: 16 rows (8
+# images and their flips) of 1370 tokens at width 1024, 16 heads
+EPILOGUE_SHAPE = (16, 1370, 1024, 16)
+
+
+def check_block_epilogue(records, reps: int = 20):
+    """The frozen block's fused passes (``ops/block_epilogue.py``) against
+    their plain twins at ``EPILOGUE_SHAPE``: bias adds, residual and head
+    split bit-equal, the LayerNorm and QuickGELU outputs within one bf16
+    spacing of each element beyond the fp32 arithmetic's own spread; each
+    timed beside its twin (the unfused torch
+    sequence), a PyTorch call computing part of it where one does
+    (``F.layer_norm`` on the residual sum for ``residual_ln``) and its bytes
+    at the HBM rate; appends their records."""
+    import torch
+    import torch.nn.functional as F
+
+    from weclip_tpu_torch.ops import block_epilogue as epi
+
+    b, l, d, h = EPILOGUE_SHAPE
+    rows = b * l
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    bf = torch.bfloat16
+
+    def randn(shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def one_rounding(what, got, want):
+        """(what, the largest gap in bf16 spacings at each element, 1): the
+        fp32 arithmetic's own spread (2^-20 of the largest value, the
+        statistics summed in another order) taken off the gap first."""
+        a, r = got.float(), want.float()
+        m = torch.maximum(a.abs(), r.abs()).clamp_min(2.0 ** -126)
+        gap = ((a - r).abs() - 2.0 ** -20 * r.abs().max()).clamp_min(0.0)
+        excess = (gap / torch.exp2(torch.floor(torch.log2(m)) - 7)).max()
+        return (f"{what} (bf16 spacings)", float(excess), 1.0)
+
+    source = "weclip_tpu_torch/csrc/block_epilogue.cu"
+    replaces = ("none (no TPU kernel: XLA fuses the frozen block's elementwise work "
+                "into its products, weclip_tpu/models/clip/vit.py::block_forward)")
+    shapes = [list(EPILOGUE_SHAPE)]
+    g3, in_b = randn((b, l, 3 * d)), randn((3 * d,), 0.5)
+    got, want = epi.qkv_bias_split(g3, in_b, h), epi.qkv_bias_split_plain(g3, in_b, h)
+    checks = [(f"{n} exact", max_err(x, y), 0.0) for n, x, y in zip("qkv", got, want)]
+    record_kernel(records, "qkv_bias_split", source, replaces, checks,
+                  cuda_ms(lambda: epi.qkv_bias_split(g3, in_b, h), reps),
+                  cuda_ms(lambda: epi.qkv_bias_split_plain(g3, in_b, h), reps),
+                  bound_ms(2 * rows * 3 * d * 2, 0.0, "bf16"), None, shapes)
+    del g3, got, want
+
+    x, g = randn((b, l, d)), randn((b, l, d))
+    bias = randn((d,), 0.5)
+    ln = (1.0 + randn((d,), 0.1, torch.float32), randn((d,), 0.1, torch.float32))
+    valid = torch.zeros((b, l), dtype=torch.bool, device="cuda")
+    for i in range(b):
+        valid[i, :l - 37 * (i % 4)] = True
+    ln16 = (ln[0].to(bf), ln[1].to(bf))
+    y, lo = epi.residual_ln(g, ln, x=x, bias=bias, rowmask=valid)
+    want_y, want_lo = epi.residual_ln_plain(g, ln, x=x, bias=bias, rowmask=valid)
+    checks = [("y exact", max_err(y, want_y), 0.0), one_rounding("ln", lo, want_lo)]
+    record_kernel(records, "residual_ln", source, replaces, checks,
+                  cuda_ms(lambda: epi.residual_ln(g, ln, x=x, bias=bias, rowmask=valid), reps),
+                  cuda_ms(lambda: epi.residual_ln_plain(g, ln, x=x, bias=bias,
+                                                        rowmask=valid), reps),
+                  bound_ms(4 * rows * d * 2 + rows, 0.0, "bf16"),
+                  cuda_ms(lambda: F.layer_norm(y, (d,), ln16[0], ln16[1]), reps), shapes,
+                  library_call="F.layer_norm on the bf16 sum alone, bf16 gain and bias")
+    del x, g, y, lo, want_y, want_lo
+
+    g4, fc_b = randn((b, l, 4 * d), 3.0), randn((4 * d,), 0.5)
+    want = epi.bias_quick_gelu_plain(g4.clone(), fc_b)
+    checks = [one_rounding("out", epi.bias_quick_gelu(g4.clone(), fc_b), want)]
+    record_kernel(records, "bias_quick_gelu", source, replaces, checks,
+                  cuda_ms(lambda: epi.bias_quick_gelu(g4, fc_b), reps),
+                  cuda_ms(lambda: epi.bias_quick_gelu_plain(g4, fc_b), reps),
+                  bound_ms(2 * rows * 4 * d * 2, 0.0, "bf16"), None, shapes,
+                  resources=kernel_resources("block_epilogue"))
+    del g4, want
+    torch.cuda.empty_cache()
+
+
 def crf_inputs(c: int, size: int, seed: int):
     """(probs (C, S, S), image (3, S, S) float 0..255) on the host: a
     VOC-like image of a few rectangles and noise, and the softmax of noisy
@@ -3238,6 +3321,7 @@ def main() -> int:
     records = check_kernels()
     check_cti_kernels(records)
     attention_resources = check_widths(records)
+    check_block_epilogue(records)
     launches, pipeline = run_pipeline()
     results = {"pipeline": pipeline, "attention_resources": attention_resources}
     work = tempfile.mkdtemp(prefix="weclip_chip_smoke_")

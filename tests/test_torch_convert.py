@@ -149,7 +149,8 @@ def test_launch_counters_reset():
     assert set(kernels.launches) == {"attention_fwd_export", "attention_fwd",
                                      "attention_bwd", "cross_attention",
                                      "attention_bwd_rect", "par_affinity",
-                                     "par_propagate", "crf_window"}
+                                     "par_propagate", "crf_window", "qkv_bias_split",
+                                     "residual_ln", "bias_quick_gelu"}
     assert not any(kernels.launches.values())
 
 

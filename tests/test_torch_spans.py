@@ -227,10 +227,11 @@ def test_syncs_count_by_span_and_line_under_the_profiler():
 
 def test_launch_counts_keep_their_by_kernel_view():
     names = {"attention_fwd_export", "attention_fwd", "attention_bwd", "cross_attention",
-             "attention_bwd_rect", "par_affinity", "par_propagate", "crf_window"}
+             "attention_bwd_rect", "par_affinity", "par_propagate", "crf_window",
+             "qkv_bias_split", "residual_ln", "bias_quick_gelu"}
     kernels.reset_launches()
     try:
-        assert set(kernels.launches) == names and len(kernels.launches) == 8
+        assert set(kernels.launches) == names and len(kernels.launches) == 11
         assert not any(kernels.launches.values())
         rec = spans.RECORDER.open
         kernels.count_launch("par_propagate", (2, 5, 64, 64), 20)

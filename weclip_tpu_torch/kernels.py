@@ -12,8 +12,9 @@ anything but 0.
 ``count_launch`` counts kernel launches in the program's recorder
 (``utils/spans.py``) by kernel and shape, and by the stage that launched
 them; ``launches`` is the by-kernel view of those counts.  Only the
-wrappers in ``ops/attention_kernels.py``, ``refine/par_kernels.py`` and
-``refine/crf_kernels.py`` count, at the point where they launch.
+wrappers in ``ops/attention_kernels.py``, ``ops/block_epilogue.py``,
+``refine/par_kernels.py`` and ``refine/crf_kernels.py`` count, at the point
+where they launch.
 """
 
 from __future__ import annotations
@@ -87,6 +88,16 @@ SIGNATURES = {
         # the far form: the same, dilations in device memory
         "par_propagate_far": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
     },
+    "block_epilogue": {
+        # bf16 g (B * L, 3D), in_b, q, k, v (B, H, L, Dh), B, L, H, Dh,
+        # stream
+        "qkv_bias_split": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # bf16 x (or None), g, bias (or None), bool rowmask (or None), fp32
+        # gamma, beta, bf16 y (or None), ln (or None), rows, D, eps, stream
+        "residual_ln": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+        # bf16 g, bias, out (may be g), rows, F, stream
+        "bias_quick_gelu": [_P, _P, _P, _I, _I, _P],
+    },
     "crf": {
         # fp32 q (or None when C == 0), img, acc, norm, B, C, hs, ws, r,
         # sigma^2, stream
@@ -107,6 +118,9 @@ launches = spans.CounterView(spans.RECORDER, spans.LAUNCHES, (
     "par_affinity",           # K4
     "par_propagate",          # K5
     "crf_window",             # K7
+    "qkv_bias_split",         # the frozen block's passes (csrc/block_epilogue.cu)
+    "residual_ln",
+    "bias_quick_gelu",
 ))
 
 _libs: Dict[str, ctypes.CDLL] = {}

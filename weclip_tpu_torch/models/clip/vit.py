@@ -13,6 +13,8 @@ causal bias.
 from __future__ import annotations
 
 import math
+import weakref
+from collections import OrderedDict
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -22,9 +24,12 @@ import torch.nn.functional as F
 from weclip_tpu_torch.core import precision
 from weclip_tpu_torch.core.config import ClipConfig
 from weclip_tpu_torch.models.clip.graphs import ForwardGraphs
+from weclip_tpu_torch.ops import block_epilogue as epi
 from weclip_tpu_torch.ops.attention import MhaParams, mha_auto, mha_with_weights
+from weclip_tpu_torch.ops.attention_kernels import attention_core
 from weclip_tpu_torch.ops.resize import _linear_matrix, upsample_pos_emb
 from weclip_tpu_torch.parallel.mesh import Mesh, enter_model, leave_model, mesh_of
+from weclip_tpu_torch.utils import spans
 
 Params = Dict[str, Any]
 
@@ -205,6 +210,125 @@ class VisionFeatures(NamedTuple):
 
 # the frozen forward's CUDA graphs, one per input signature (graphs.py)
 FROZEN_GRAPHS = ForwardGraphs("backbone_graph")
+# one count a frozen block a forward, keyed by the path it took: FUSED
+# (``frozen_block_forward``) or PLAIN (``block_forward``)
+BLOCK_COUNTER, FUSED, PLAIN = "backbone_block", "fused", "plain"
+
+
+class FrozenWeights(NamedTuple):
+    """The frozen blocks' weights as ``frozen_block_forward`` reads them,
+    stacked on the block axis: the products' weights and biases in bf16,
+    the LayerNorms' gains and biases in fp32 (fresh, aligned copies)."""
+    in_w: torch.Tensor       # (n, 3D, D)
+    in_b: torch.Tensor       # (n, 3D)
+    out_w: torch.Tensor      # (n, D, D)
+    out_b: torch.Tensor      # (n, D)
+    fc_w: torch.Tensor       # (n, 4D, D)
+    fc_b: torch.Tensor       # (n, 4D)
+    proj_w: torch.Tensor     # (n, D, 4D)
+    proj_b: torch.Tensor     # (n, D)
+    ln1_g: torch.Tensor      # (n, D) fp32
+    ln1_b: torch.Tensor
+    ln2_g: torch.Tensor
+    ln2_b: torch.Tensor
+
+
+class FrozenWeightCache:
+    """``FrozenWeights`` made once per frozen state.  An entry is held under
+    the device and the storage of the stacked block tensors (as
+    ``graph_key`` keys the graphs) with weak references to those tensors:
+    a tree that reuses a freed tree's addresses is never served its casts,
+    and an entry goes as soon as a tensor it was cast from is freed.
+    ``SIZE`` states are kept, the least recently used evicted.  The casts
+    are deterministic, so the products read the values ``block_forward``'s
+    own casts give."""
+
+    SIZE = 2
+
+    def __init__(self):
+        self._entries: "OrderedDict[Tuple, Tuple[list, FrozenWeights]]" = OrderedDict()
+
+    def get(self, blocks: Params, n: int) -> FrozenWeights:
+        """The first ``n`` blocks' weights of the stacked tree ``blocks``."""
+        a, m = blocks["attn"], blocks["mlp"]
+        src = (a["in_w"], a["in_b"], a["out_w"], a["out_b"], m["fc_w"], m["fc_b"],
+               m["proj_w"], m["proj_b"], blocks["ln_1"]["g"], blocks["ln_1"]["b"],
+               blocks["ln_2"]["g"], blocks["ln_2"]["b"])
+        key = (str(src[0].device), n) + tuple(t.data_ptr() for t in src)
+        hit = self._entries.get(key)
+        if hit is not None and all(r() is t for r, t in zip(hit[0], src)):
+            self._entries.move_to_end(key)
+            return hit[1]
+        dtypes = [torch.bfloat16] * 8 + [torch.float32] * 4
+        w = FrozenWeights(*(t[:n].to(dt, copy=True).contiguous()
+                            for t, dt in zip(src, dtypes)))
+        drop = self._dropper(key)
+        self._entries[key] = ([weakref.ref(t, drop) for t in src], w)
+        while len(self._entries) > self.SIZE:
+            self._entries.popitem(last=False)
+        return w
+
+    def _dropper(self, key: Tuple):
+        """The weak references' callback: removes the entry under ``key``
+        if the freed tensor is one of its sources (not one of a later
+        entry's under the same key).  It holds the cache weakly, so no
+        cycle keeps an evicted entry's copies alive."""
+        cache = weakref.ref(self)
+
+        def drop(freed: weakref.ref) -> None:
+            entries = getattr(cache(), "_entries", {})
+            hit = entries.get(key)
+            if hit is not None and any(r is freed for r in hit[0]):
+                del entries[key]
+        return drop
+
+
+FROZEN_WEIGHTS = FrozenWeightCache()
+
+
+def fused_path(params: Params, x: torch.Tensor, policy: precision.Policy) -> bool:
+    """Whether the frozen blocks run ``frozen_block_forward``: CUDA tensors,
+    the bf16 compute dtype, and no model group on the blocks (``p["tp"]``).
+    Everything else runs ``block_forward``.  It is asked only inside
+    ``vision_forward_frozen``, which runs under ``no_grad``: no gradient."""
+    return (x.is_cuda and policy.compute_dtype == torch.bfloat16
+            and mesh_of(params["blocks"]) is None)
+
+
+def frozen_block_forward(w: FrozenWeights, i: int, x: torch.Tensor, a: torch.Tensor,
+                         n_heads: int, valid: torch.Tensor, kmask: torch.Tensor,
+                         map_rows: int, out: torch.Tensor, attn_out: Optional[torch.Tensor],
+                         ln_next: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                         ) -> Optional[torch.Tensor]:
+    """Frozen block ``i`` over a bf16 residual stream: ``block_forward``'s
+    arithmetic and rounding points, its elementwise work in three fused
+    passes (ops/block_epilogue.py) and its products on the bf16 weights
+    ``w``, no bias in them.
+
+    x (B, L, D) the stream and a its ln_1 output; valid (B, L) bool and
+    kmask its float copy.  The first ``map_rows`` rows run K1 and write
+    their head-mean maps, invalid query rows zeroed, to ``attn_out``
+    (map_rows, L, L); the rest run K2.  The block's output goes to ``out``
+    (B, L, D).  Returns LN(out) under ``ln_next`` (the next block's ln_1
+    gain and bias), or None without it."""
+    b, l, d = x.shape
+    q, k, v = epi.qkv_bias_split(torch.matmul(a, w.in_w[i].mT), w.in_b[i], n_heads)
+    heads = x.new_empty((b, l, n_heads, d // n_heads))
+    if map_rows:
+        o1, amap = attention_core(q[:map_rows], k[:map_rows], v[:map_rows],
+                                  kmask[:map_rows], export_weights=True)
+        heads[:map_rows].copy_(o1.transpose(1, 2))
+        torch.where(valid[:map_rows, :, None], amap, amap.new_zeros(()), out=attn_out)
+    if map_rows < b:
+        o2, _ = attention_core(q[map_rows:], k[map_rows:], v[map_rows:],
+                               kmask[map_rows:], export_weights=False)
+        heads[map_rows:].copy_(o2.transpose(1, 2))
+    mid, a2 = epi.residual_ln(torch.matmul(heads.view(b, l, d), w.out_w[i].mT),
+                              (w.ln2_g[i], w.ln2_b[i]), x=x, bias=w.out_b[i],
+                              rowmask=valid)
+    h = epi.bias_quick_gelu(torch.matmul(a2, w.fc_w[i].mT), w.fc_b[i])
+    return epi.residual_ln(torch.matmul(h, w.proj_w[i].mT), ln_next, x=mid,
+                           bias=w.proj_b[i], out=out)[1]
 
 
 def graph_key(params: Params, img: torch.Tensor, pos_emb: torch.Tensor,
@@ -212,14 +336,19 @@ def graph_key(params: Params, img: torch.Tensor, pos_emb: torch.Tensor,
               with_attn: bool, attn_rows: int) -> Optional[Tuple]:
     """The signature the frozen forward's CUDA graph is held under: the
     device, the inputs' shapes and dtypes, the map export, the policy, the
-    configuration and the storage of every parameter (a new frozen state
-    captures anew).  None, so eager, for blocks split over a model group
-    (``p["tp"]``: a collective inside)."""
+    configuration and the storage of every parameter and, on the fused
+    path, of its bf16 weight copies (a new frozen state captures anew).
+    None, so eager, for blocks split over a model group (``p["tp"]``: a
+    collective inside)."""
     if mesh_of(params["blocks"]) is not None:
         return None
     shapes = tuple((tuple(t.shape), t.dtype) for t in (img, pos_emb, valid))
     storage = []
     tree_map(lambda t: storage.append(t.data_ptr()), params)
+    if fused_path(params, img, policy):
+        # the graph reads the bf16 copies: a new set of copies captures anew
+        storage.extend(t.data_ptr() for t in
+                       FROZEN_WEIGHTS.get(params["blocks"], cfg.vision_layers - 1))
     return (str(img.device), shapes, with_attn, attn_rows, policy, cfg, tuple(storage))
 
 
@@ -267,7 +396,8 @@ def _forward_frozen(params: Params, img: torch.Tensor, pos_emb: torch.Tensor,
                     valid: torch.Tensor, cfg: ClipConfig, policy: precision.Policy,
                     with_attn: bool, k: int) -> VisionFeatures:
     """``vision_forward_frozen`` as it runs eager; maps for the first ``k``
-    rows."""
+    rows.  The blocks run ``frozen_block_forward`` where ``fused_path``
+    holds, else ``block_forward``."""
     b = img.shape[0]
     x = patchify(img, params["conv1_w"], cfg.patch_size, policy)
     cls = params["class_embedding"].float()[None, None, :].expand(b, 1, x.shape[-1])
@@ -278,6 +408,10 @@ def _forward_frozen(params: Params, img: torch.Tensor, pos_emb: torch.Tensor,
     x = x.to(policy.compute_dtype)
 
     n_frozen = cfg.vision_layers - 1
+    if fused_path(params, x, policy):
+        spans.count(BLOCK_COUNTER, n_frozen, key=FUSED)
+        return _blocks_fused(params, x, valid, cfg, with_attn, k)
+    spans.count(BLOCK_COUNTER, n_frozen, key=PLAIN)
     blocks = [block_params(params["blocks"], i) for i in range(n_frozen)]
 
     if with_attn and k < b:
@@ -304,6 +438,31 @@ def _forward_frozen(params: Params, img: torch.Tensor, pos_emb: torch.Tensor,
         l = x.shape[1]
         attns = (torch.stack(attn_l) if with_attn else
                  torch.zeros((0, b, l, l), device=x.device, dtype=torch.float32))
+    return VisionFeatures(xs, attns, valid)
+
+
+def _blocks_fused(params: Params, x: torch.Tensor, valid: torch.Tensor, cfg: ClipConfig,
+                  with_attn: bool, k: int) -> VisionFeatures:
+    """The frozen blocks over the bf16 stream x (B, L, D) through
+    ``frozen_block_forward``: each block's output goes straight into its
+    slot of the layer-token buffer, each map into its slot of the map
+    buffer."""
+    b, l, d = x.shape
+    n_frozen = cfg.vision_layers - 1
+    w = FROZEN_WEIGHTS.get(params["blocks"], n_frozen)
+    rows = valid.bool().contiguous()
+    kmask = valid.float()
+    map_rows = k if with_attn else 0
+    xs = x.new_empty((n_frozen, b, l, d))
+    attns = (x.new_empty((n_frozen, k, l, l), dtype=torch.float32) if with_attn else
+             torch.zeros((0, b, l, l), device=x.device, dtype=torch.float32))
+    # block 0's ln_1; each block then writes the next one's
+    _, a = epi.residual_ln(x, (w.ln1_g[0], w.ln1_b[0]))
+    for i in range(n_frozen):
+        ln_next = (w.ln1_g[i + 1], w.ln1_b[i + 1]) if i + 1 < n_frozen else None
+        a = frozen_block_forward(w, i, x, a, cfg.vision_heads, rows, kmask, map_rows,
+                                 xs[i], attns[i] if with_attn else None, ln_next)
+        x = xs[i]
     return VisionFeatures(xs, attns, valid)
 
 
