@@ -14,6 +14,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests import torch_support  # noqa: F401
 from weclip_tpu.core import precision as jprec
 from weclip_tpu.ops import attention as jattn
 from weclip_tpu.ops import pallas_attention as jpal

@@ -11,6 +11,7 @@ run them there with
 import pytest
 import torch
 
+from tests.torch_support import card  # noqa: F401
 from weclip_tpu_torch import kernels
 from weclip_tpu_torch.core import precision
 from weclip_tpu_torch.core.config import ClipConfig
@@ -23,13 +24,6 @@ pytestmark = pytest.mark.cuda
 BF = torch.bfloat16
 # (B, L, D, H): vitl14-eval's scale 1 and scale 2, voc-train's step
 SHAPES = [(16, 1370, 1024, 16), (16, 842, 1024, 16), (4, 401, 768, 12)]
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
 
 
 def _gen(seed):

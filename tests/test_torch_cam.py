@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 
 from tests import tiny
+from tests import torch_support  # noqa: F401
 from tests.test_torch_pipeline import _valid
 from weclip_tpu.cam import highres as jhighres
 from weclip_tpu.cam import targets as jtargets

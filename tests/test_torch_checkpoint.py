@@ -15,6 +15,7 @@ import torch
 import jax
 
 from tests import tiny
+from tests import torch_support  # noqa: F401
 from weclip_tpu.models import weclip as jweclip
 from weclip_tpu.train import checkpoint as jcheckpoint
 from weclip_tpu_torch import convert

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from tests import torch_support  # noqa: F401
 from tests.test_tokenizer import make_tiny_vocab
 from tests.test_torch_clip_text import TINY_VOCAB, write_clip_checkpoint
 

@@ -24,6 +24,7 @@ from hypothesis import strategies as st
 import jax
 import jax.numpy as jnp
 
+from tests import torch_support  # noqa: F401
 from tests.test_tokenizer import make_tiny_vocab
 from weclip_tpu.core import config as jconfig
 from weclip_tpu.core import precision as jprec

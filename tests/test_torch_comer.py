@@ -17,6 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests import torch_support  # noqa: F401
 from weclip_tpu.core import precision as jprec
 from weclip_tpu.core.config import ComerConfig
 from weclip_tpu.models import comer as jcomer

@@ -20,6 +20,7 @@ import torch
 import jax
 
 from tests import tiny
+from tests import torch_support  # noqa: F401
 from weclip_tpu.core.config import ComerConfig
 from weclip_tpu.models import heads as jheads
 from weclip_tpu.train import seg_step as jseg

@@ -13,6 +13,7 @@ import torch
 import jax
 
 from tests import tiny
+from tests import torch_support  # noqa: F401
 from weclip_tpu.core.config import ComerConfig
 from weclip_tpu.models import comer as jcomer
 from weclip_tpu.models import heads as jheads

@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from tests import tiny
+from tests import torch_support  # noqa: F401
 from weclip_tpu.core import precision as jprec
 from weclip_tpu.core.config import CrfConfig as JCrfConfig
 from weclip_tpu.evalx import metrics as jmetrics

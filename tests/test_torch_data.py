@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from tests import torch_support  # noqa: F401
 from tests.test_coco_data import make_fake_coco
 from weclip_tpu.core.config import DatasetConfig as JDatasetConfig
 from weclip_tpu.data import coco as jcoco

@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from tests import torch_support  # noqa: F401
 from weclip_tpu_torch.core import config as tconfig
 from weclip_tpu_torch.core import precision as tprec
 from weclip_tpu_torch.models import weclip as tweclip

@@ -18,6 +18,7 @@ from PIL import Image
 import jax
 
 from tests import tiny
+from tests import torch_support  # noqa: F401
 from weclip_tpu.core import precision as jprec
 from weclip_tpu.evalx import runner as jrunner
 from weclip_tpu.models import weclip as jweclip

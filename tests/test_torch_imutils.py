@@ -12,6 +12,7 @@ import sys
 import numpy as np
 import pytest
 
+from tests import torch_support  # noqa: F401
 from weclip_tpu.utils import imutils as jim
 from weclip_tpu_torch.utils import imutils as tim
 

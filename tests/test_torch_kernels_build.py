@@ -3,6 +3,7 @@ libraries: checks that need no card and no nvcc."""
 
 import re
 
+from tests import torch_support  # noqa: F401
 from weclip_tpu_torch import kernels
 
 

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_support import card  # noqa: F401
 from weclip_tpu_torch import kernels
 from weclip_tpu_torch.core.config import ParConfig
 from weclip_tpu_torch.ops import attention_kernels as ak
@@ -21,13 +22,6 @@ pytestmark = pytest.mark.cuda
 WIDTHS = [8, 16, 20, 32, 48, 64, 80, 128, 129, 192, 256, 320]
 # the compiled instances
 COMPILED = [16, 32, 64, 128]
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
 
 
 def _qkv(card, b, h, l, dh, dtype, n_valid):

@@ -9,6 +9,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests import torch_support  # noqa: F401
 from weclip_tpu.evalx import metrics as jmetrics
 from weclip_tpu_torch.evalx import metrics as tmetrics
 

@@ -11,6 +11,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests import torch_support  # noqa: F401
 from weclip_tpu.core.config import ParConfig as JParConfig
 from weclip_tpu.ops import resize as jresize
 from weclip_tpu.refine import par as jpar

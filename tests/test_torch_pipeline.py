@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 
 from tests import tiny
+from tests import torch_support  # noqa: F401
 from weclip_tpu.cam import gradcam as jcam
 from weclip_tpu.core import precision as jprec
 from weclip_tpu.evalx import runner as jrunner

@@ -19,6 +19,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from tests.torch_support import card  # noqa: F401
 from weclip_tpu_torch import kernels
 from weclip_tpu_torch.core import config as tconfig
 from weclip_tpu_torch.utils import spans
@@ -522,13 +523,6 @@ def test_an_evaluation_batch_is_a_step_of_its_stages():
 
 
 # -- on the card ------------------------------------------------------------
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
-
 
 @pytest.mark.cuda
 def test_the_sync_counter_counts_the_walks_loop_on_the_card(card, monkeypatch):

@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from tests import tiny
+from tests import torch_support  # noqa: F401
 from tests.test_torch_comer import open_gates
 from weclip_tpu.core import config as jconfig
 from weclip_tpu.core import precision as jprec

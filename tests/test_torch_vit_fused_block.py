@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_support  # noqa: F401
 from weclip_tpu.core import config as jconfig
 from weclip_tpu.core import precision as jprec
 from weclip_tpu.models.clip import vit as jvit

@@ -19,6 +19,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from tests.torch_support import card  # noqa: F401
 from weclip_tpu_torch import kernels
 from weclip_tpu_torch.core import precision
 from weclip_tpu_torch.core.config import ClipConfig
@@ -222,13 +223,6 @@ def test_vision_forward_on_the_cpu_never_touches_the_graphs(monkeypatch):
 
 
 # -- on the card ------------------------------------------------------------
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
-
 
 @pytest.fixture(scope="module")
 def vitb16():

@@ -30,6 +30,7 @@ from benchmark.reference import precision as ref_precision
 from benchmark.reference import step as ref_step
 from benchmark.reference import vit as ref_vit
 from benchmark.reference import weclip as ref_weclip
+from tests import torch_support  # noqa: F401
 from weclip_tpu_torch.core import config as tconfig
 from weclip_tpu_torch.core import precision
 from weclip_tpu_torch.evalx.runner import Evaluator, make_prep
