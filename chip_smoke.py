@@ -12,7 +12,7 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
 3. each kernel (K1-K6, K3-rect) against its plain PyTorch version on the
    card, on seeded inputs at the shapes of the paths below, each output
    against its own stated tolerance (K1 also each of its two launches, at
-   L 1025 and 4096, and its map bit-equal across two calls; K3 also against
+   L 1025, 1370 and 4096, and its map bit-equal across two calls; K3 also against
    a float64 evaluation; ``AttentionCoreFn`` and ``CrossAttentionCoreFn``
    against their kernels and fp32 autograd; K4 and K5 at the eval and
    training shapes, 21 channels and a 20 x 28 image, with their registers
@@ -26,7 +26,10 @@ nothing of JAX or of ``weclip_tpu``.  Phases, each of which fails the run:
    kernel's cost), and K4/K5 at dilation sets past the shipped
    one ((1, 2, 4, 8, 12, 24, 32, 48), (5,), (1, 2, 64)) on a 20 x 28 image
    and the eval canvas, each checked, timed and bounded the same way
-   (``check_widths``); then the frozen block's three fused passes
+   (``check_widths``); then K2's forward by each of its two designs
+   (mma.sync, wgmma) at the cells' shapes, smaller grids and other widths,
+   device and host time (``check_forward_designs``); then the frozen
+   block's three fused passes
    (``csrc/block_epilogue.cu``) at ``vitl14-eval``'s scale-1 shape against
    their plain twins (``check_block_epilogue``);
 4. ``WeCLIPPipeline(device="cuda")`` at full ViT-B/16 width with seeded
@@ -350,10 +353,40 @@ K3_F64_RATIO = (8.0, 2.5)
 
 # K2's path shapes: (B, H, L, Dh, canvas, class token).  bf16: the frozen
 # blocks on the flipped half (8 rows) and segment-only scale 1 (16 rows) at
-# L 1025, scale 2 at 626; fp32: the eval decoder at 1024 and 625.
+# L 1025, scale 2 at 626, and ViT-L/14's (patch 14) flipped half at 1370
+# and scale 2 at 842; fp32: the eval decoder at 1024 and 625.
 K2_SHAPES = [(8, 12, 1025, 64, 512, True), (16, 12, 1025, 64, 512, True),
-             (16, 12, 626, 64, 384 + 16, True), (16, 8, 1024, 32, 512, False),
+             (16, 12, 626, 64, 384 + 16, True), (8, 16, 1370, 64, 518, True),
+             (16, 16, 842, 64, 406, True), (16, 8, 1024, 32, 512, False),
              (16, 8, 625, 32, 384 + 16, False)]
+# K1's: (B, H, L, Dh, canvas, patch), ViT-B/16's and ViT-L/14's maps of
+# the first 8 rows at scale 1
+K1_SHAPES = [(8, 12, 1025, 64, 512, 16), (8, 16, 1370, 64, 518, 14)]
+
+
+def k2_patch(l: int, canvas: int, cls: bool) -> int:
+    """The patch of a K2 shape: its grid is L (less the class token) on a
+    side squared."""
+    return canvas // math.isqrt(l - cls)
+
+
+def forward_ms(q, k, v, km, stats, reps: int) -> float:
+    """The bf16 self-attention forward alone (K1's first launch with
+    ``stats``, K2 without), by the design ``forward_design`` gives."""
+    import torch
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.ops import attention_kernels as ak
+    b, h, l, dh = q.shape
+    out = torch.empty_like(q)
+    bias = ak._padded_key_bias(km)
+    st = None if stats is None else stats.data_ptr()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), st, b,
+            h, l, dh, ctypes.c_float(dh ** -0.5), torch.cuda.current_stream().cuda_stream)
+    if ak.forward_design(q.dtype, dh) == ak.WGMMA:
+        return cuda_ms(lambda: kernels.call("hopper_attention", "attn_fwd_wgmma", *args), reps)
+    return cuda_ms(lambda: kernels.call("flash_attention", "flash_fwd", *args), reps)
+
+
 # K3's: the GradCAM pullback of pseudo_label_batch(8) (B*MC = 32 rows,
 # bucket 4, canvas 512) and of the training step (4 crops of 320, bucket 4)
 K3_SHAPES = [("gradcam", 32, 1025, 512), ("train", 16, 401, None)]
@@ -473,14 +506,40 @@ def check_kernels(reps: int = 10):
         return n + (b * l * l * 4 if export else 0)
 
     src_flash = "weclip_tpu_torch/csrc/flash_attention.cu"
+    src_hopper = "weclip_tpu_torch/csrc/hopper_attention.cu"
 
-    # K1: the frozen blocks' map export, first 8 rows at L=1025 (scale 1):
-    # the output, the map, and each of its two launches (the forward's row
-    # statistics, the map from those statistics) against its plain version
-    b, h, l, dh = 8, 12, 1025, 64
-    q, k, v = qkv(b, h, l, dh, gen, bf)
-    km = token_mask(b, 512)
-    checks, k1 = k1_checks(q, k, v, km, f"{[b, h, l, dh]}")
+    # K1: the frozen blocks' map export, first 8 rows at scale 1 (ViT-B/16,
+    # L 1025; ViT-L/14, L 1370): the output, the map, and each of its two
+    # launches (the forward's row statistics, the map from those
+    # statistics) against its plain version; each timed, with its forward
+    # alone and its map kernel alone
+    checks, k1_ms, k1_fwd_ms, k1_bound, k1_plain = [], {}, {}, {}, {}
+    stream = torch.cuda.current_stream().cuda_stream
+    for b, h, l, dh, canvas, patch in K1_SHAPES:
+        q, k, v = qkv(b, h, l, dh, gen, bf)
+        km = token_mask(b, canvas, patch)
+        what = f"{[b, h, l, dh]}"
+        more, k1 = k1_checks(q, k, v, km, what)
+        checks += more
+        bias = ak._padded_key_bias(km)
+        stats = torch.empty((b, h, l, 2), device="cuda")
+        amap = torch.empty((b, l, l), device="cuda")
+        ak.attention_core(q, k, v, km, True, stats=stats)
+        k1.setdefault("map_kernel_ms_by_shape", {})[what] = cuda_ms(lambda: kernels.call(
+            "flash_attention", "attn_map", q.data_ptr(), k.data_ptr(), bias.data_ptr(),
+            stats.data_ptr(), amap.data_ptr(), b, h, l, dh, ctypes.c_float(dh ** -0.5),
+            stream), reps)
+        k1_fwd_ms[what] = forward_ms(q, k, v, km, stats, reps)
+        k1_ms[what] = cuda_ms(lambda: ak.attention_core(q, k, v, km, True), reps)
+        k1_plain[what] = cuda_ms(lambda: ak.attention_core_plain(q, k, v, km, True), reps)
+        k1_bound[what] = bound_ms(attn_fwd_bytes(b, h, l, dh, True), 4 * b * h * l * l * dh,
+                                  "bf16")
+        print(f"[kernel] attention_fwd_export {what}: {k1_ms[what]:.4f} ms (forward "
+              f"{k1_fwd_ms[what]:.4f} ms, {ak.forward_design(bf, dh)}; map kernel "
+              f"{k1['map_kernel_ms_by_shape'][what]:.4f} ms), bound {k1_bound[what][0]:.4f} ms",
+              flush=True)
+        del amap, stats, bias
+    first = f"{list(K1_SHAPES[0][:4])}"
     # ... past the fp32 kernel's whole-row length limit, with an image whose
     # keys are partly masked, untimed
     q2, k2, v2 = qkv(2, 12, 4096, 64, gen, bf)
@@ -488,37 +547,24 @@ def check_kernels(reps: int = 10):
     km2[1, 1500:] = 0.0
     checks += k1_checks(q2, k2, v2, km2, "[2, 12, 4096, 64]")[0]
     del q2, k2, v2, km2
-    bias = ak._padded_key_bias(km)
-    stats = torch.empty((b, h, l, 2), device="cuda")
-    amap = torch.empty((b, l, l), device="cuda")
-    ak.attention_core(q, k, v, km, True, stats=stats)
-    stream = torch.cuda.current_stream().cuda_stream
-    k1["map_kernel_ms"] = cuda_ms(lambda: kernels.call(
-        "flash_attention", "attn_map", q.data_ptr(), k.data_ptr(), bias.data_ptr(),
-        stats.data_ptr(), amap.data_ptr(), b, h, l, dh, ctypes.c_float(dh ** -0.5),
-        stream), reps)
     record("attention_fwd_export", src_flash,
            "weclip_tpu/ops/pallas_attention.py:195 (attention_core_pallas, "
            "export_weights=True; pallas_call :260)",
-           checks,
-           cuda_ms(lambda: ak.attention_core(q, k, v, km, True), reps),
-           cuda_ms(lambda: ak.attention_core_plain(q, k, v, km, True), reps),
-           bound_ms(attn_fwd_bytes(b, h, l, dh, True), 4 * b * h * l * l * dh,
-                    "bf16"),
-           None, [[b, h, l, dh], [2, 12, 4096, 64]], timed_shape=f"{[b, h, l, dh]}",
+           checks, k1_ms[first], k1_plain[first], k1_bound[first],
+           None, [list(s[:4]) for s in K1_SHAPES] + [[2, 12, 4096, 64]], timed_shape=first,
+           ms_by_shape=k1_ms, forward_ms_by_shape=k1_fwd_ms, plain_ms_by_shape=k1_plain,
+           bound_ms_by_shape={w: bd[0] for w, bd in k1_bound.items()},
+           forward_source=src_hopper,
            fp32_source="weclip_tpu_torch/csrc/attention.cu", **k1)
-    print(f"[kernel] attention_fwd_export: map kernel alone "
-          f"{k1['map_kernel_ms']:.4f} ms", flush=True)
-    del amap, stats, bias
 
-    # K2 at its five path shapes, each timed beside SDPA with the same
+    # K2 at its path shapes, each timed beside SDPA with the same
     # boolean key mask; then once past K1's whole-row limit, untimed
     checks, ms_by_shape, sdpa_by_shape, first = [], {}, {}, None
     plain_by_shape, bound_by_shape = {}, {}
     for (b, h, l, dh, canvas, cls) in K2_SHAPES:
         dtype = bf if dh == 64 else torch.float32
         q, k, v = qkv(b, h, l, dh, gen, dtype)
-        km = token_mask(b, canvas)
+        km = token_mask(b, canvas, k2_patch(l, canvas, cls))
         if not cls:
             km = km[:, 1:]
         out, _ = ak.attention_core(q, k, v, km, export_weights=False)
@@ -533,6 +579,9 @@ def check_kernels(reps: int = 10):
         bound_by_shape[what] = bound_ms(4 * b * h * l * dh * sz + b * l * 4,
                                         4 * b * h * l * l * dh,
                                         "bf16" if dtype == bf else "tf32x3")[0]
+        print(f"[kernel] attention_fwd {what}: {ms_by_shape[what]:.4f} ms "
+              f"({ak.forward_design(dtype, dh)}), SDPA {sdpa_by_shape[what]:.4f} ms, "
+              f"bound {bound_by_shape[what]:.4f} ms", flush=True)
         if first is None:
             first = (q, k, v, km)
         del out, ref
@@ -558,7 +607,7 @@ def check_kernels(reps: int = 10):
            sdpa_by_shape[what], [list(s[:4]) for s in K2_SHAPES] + [[2, 12, 4096, 64]],
            timed_shape=what, ms_by_shape=ms_by_shape, library_ms_by_shape=sdpa_by_shape,
            plain_ms_by_shape=plain_by_shape, bound_ms_by_shape=bound_by_shape,
-           fp32_source="weclip_tpu_torch/csrc/cross_attention.cu")
+           forward_source=src_hopper, fp32_source="weclip_tpu_torch/csrc/cross_attention.cu")
     del first, q, k, v
 
     # K3: the GradCAM pullback, B*MC = 32 rows at L=1025 (bucket 4)
@@ -1062,6 +1111,56 @@ def check_widths(records, reps: int = 5):
     # every attention instance's registers and spills (PAR's: check_kernels)
     return {lib: kernel_resources(lib) for lib in ("flash_attention", "hopper_attention",
                                                    "cross_attention", "attention")}
+
+
+# (B, H, L, Dh) at which both designs of the bf16 self-attention forward
+# are timed: the cells' shapes, smaller grids down to one block, and the
+# other widths the wgmma kernel is built at
+DESIGN_SHAPES = [(1, 1, 77, 64), (1, 12, 77, 64), (1, 12, 197, 64), (2, 12, 401, 64),
+                 (4, 12, 401, 64), (16, 12, 401, 64), (16, 12, 626, 64), (8, 12, 1025, 64),
+                 (16, 16, 842, 64), (8, 16, 1370, 64), (4, 12, 401, 32), (8, 12, 1025, 32),
+                 (4, 12, 401, 128), (8, 12, 1025, 128)]
+
+
+def check_forward_designs(reps: int = 20):
+    """Phase 3: K2's forward by each design, flash_attention.cu's mma.sync
+    kernel and hopper_attention.cu's wgmma kernel, on the same inputs (all
+    keys valid) at DESIGN_SHAPES: device ms (CUDA events behind a spin),
+    host microseconds a call (the launch with its tensor maps, queued
+    without a wait), and which design ``forward_design`` picks.  Returns
+    {shape: {design: {"ms", "host_us", "tflops"}, "picked"}}."""
+    import torch
+    from weclip_tpu_torch import kernels
+    from weclip_tpu_torch.ops import attention_kernels as ak
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    found = {}
+    for b, h, l, dh in DESIGN_SHAPES:
+        q, k, v = qkv(b, h, l, dh, gen, torch.bfloat16)
+        km = torch.ones((b, l), device="cuda")
+        bias = ak._padded_key_bias(km)
+        out = torch.empty_like(q)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), None,
+                b, h, l, dh, ctypes.c_float(dh ** -0.5), torch.cuda.current_stream().cuda_stream)
+        row = {"picked": ak.forward_design(torch.bfloat16, dh)}
+        for design, lib, fn in ((ak.MMA, "flash_attention", "flash_fwd"),
+                                (ak.WGMMA, "hopper_attention", "attn_fwd_wgmma")):
+            call = functools.partial(kernels.call, lib, fn, *args)
+            ms = cuda_ms(call, reps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            host_us = (time.perf_counter() - t0) / reps * 1e6
+            torch.cuda.synchronize()
+            row[design] = {"ms": ms, "host_us": host_us,
+                           "tflops": 4 * b * h * l * l * dh / ms / 1e9}
+        found[f"{[b, h, l, dh]}"] = row
+        print(f"[design] {[b, h, l, dh]}: mma {row[ak.MMA]['ms']:.4f} ms "
+              f"({row[ak.MMA]['tflops']:.0f} TFLOP/s, host {row[ak.MMA]['host_us']:.1f} us), "
+              f"wgmma {row[ak.WGMMA]['ms']:.4f} ms ({row[ak.WGMMA]['tflops']:.0f} TFLOP/s, "
+              f"host {row[ak.WGMMA]['host_us']:.1f} us); picked {row['picked']}", flush=True)
+    return found
 
 
 def cti_masks(b: int, canvas: int):
@@ -3321,9 +3420,11 @@ def main() -> int:
     records = check_kernels()
     check_cti_kernels(records)
     attention_resources = check_widths(records)
+    forward_designs = check_forward_designs()
     check_block_epilogue(records)
     launches, pipeline = run_pipeline()
-    results = {"pipeline": pipeline, "attention_resources": attention_resources}
+    results = {"pipeline": pipeline, "attention_resources": attention_resources,
+               "forward_designs": forward_designs}
     work = tempfile.mkdtemp(prefix="weclip_chip_smoke_")
     try:
         for name, phase in (("comer_pipeline", run_comer_pipeline),

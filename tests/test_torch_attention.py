@@ -21,6 +21,7 @@ from weclip_tpu.ops import pallas_attention as jpal
 from weclip_tpu_torch.core import precision as tprec
 from weclip_tpu_torch.ops import attention as tattn
 from weclip_tpu_torch.ops import attention_kernels as tak
+from weclip_tpu_torch.utils import spans
 
 F32_TOL = 2e-5
 GRAD_TOL = 5e-4
@@ -259,6 +260,73 @@ def test_attention_core_writes_stats_only_from_the_bf16_map_kernel():
     q, k, v, kmask = map(torch.from_numpy, _qkv_mask(15, 1, 2, 8, 32, n_valid=(8,)))
     with pytest.raises(ValueError):
         tak.attention_core(q, k, v, kmask, stats=torch.empty((1, 2, 8, 2)))
+
+
+# (dtype, B, H, L, Dh) of every self-attention forward the five benchmark
+# cells run: ViT-B/16's frozen blocks (K1 on 8 rows, K2 on the others and
+# at scale 2; training's 4 crops of 320), ViT-L/14's, and the evaluation
+# decoder (fp32, 8 heads of 32)
+CELL_FORWARDS = [(torch.bfloat16, 8, 12, 1025, 64), (torch.bfloat16, 16, 12, 626, 64),
+                 (torch.bfloat16, 4, 12, 401, 64), (torch.bfloat16, 8, 16, 1370, 64),
+                 (torch.bfloat16, 16, 16, 842, 64), (torch.float32, 16, 8, 1024, 32),
+                 (torch.float32, 16, 8, 625, 32)]
+
+
+@pytest.mark.parametrize("dtype,b,h,l,dh", CELL_FORWARDS)
+def test_forward_design_at_the_cells_shapes(dtype, b, h, l, dh):
+    """bf16 at head width 64 runs the wgmma forward at every shape a cell
+    runs; fp32 keeps the split-TF32 forward."""
+    want = tak.WGMMA if dtype == torch.bfloat16 else tak.MMA
+    assert tak.forward_design(dtype, dh) == want
+
+
+@pytest.mark.parametrize("dh", [8, 20, 48, 80, 129, 256])
+def test_forward_design_keeps_the_mma_kernels_at_other_widths(dh):
+    assert tak.forward_design(torch.bfloat16, dh) == tak.MMA
+    assert tak.forward_design(torch.float32, 64) == tak.MMA
+
+
+class _Card(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, so the wrapper takes its
+    launch path (with the launches recorded instead of made)."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("dtype,dh,export", [(torch.bfloat16, 64, True),
+                                             (torch.bfloat16, 64, False),
+                                             (torch.bfloat16, 48, True),
+                                             (torch.bfloat16, 160, False),
+                                             (torch.float32, 64, True)])
+def test_attention_core_counts_each_bf16_call_by_its_design(monkeypatch, dtype, dh, export):
+    """One count of ``FWD_COUNTER`` a bf16 call, keyed by the design that
+    launched (and none under fp32); the launches are those of the design:
+    the wgmma forward, else flash_attention.cu's (or, above 128,
+    cross_attention.cu's), then K1's map from the forward's statistics."""
+    import contextlib
+    import types
+    launched = []
+    monkeypatch.setattr(tak.kernels, "call", lambda lib, fn, *a: launched.append((lib, fn)))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    q, k, v, kmask = (torch.from_numpy(x) for x in _qkv_mask(17, 2, 2, 40, dh, (40, 9)))
+    q, k, v = (t.to(dtype).as_subclass(_Card) for t in (q, k, v))
+    before = dict(spans.RECORDER.totals.get(tak.FWD_COUNTER, {}))
+    tak.attention_core(q, k, v, kmask, export_weights=export)
+    after = spans.RECORDER.totals.get(tak.FWD_COUNTER, {})
+    design = tak.forward_design(dtype, dh)
+    added = {key: n - before.get(key, 0) for key, n in after.items() if n != before.get(key, 0)}
+    assert added == ({design: 1} if dtype == torch.bfloat16 else {})
+    forward = {tak.WGMMA: ("hopper_attention", "attn_fwd_wgmma"),
+               tak.MMA: ("flash_attention", "flash_fwd") if dh <= 128 and dtype == torch.bfloat16
+               else ("cross_attention", "xattn_fwd_bf16" if dtype == torch.bfloat16
+                     else "xattn_fwd")}[design]
+    maps = ([("flash_attention", "attn_map")] if dh <= 128 and dtype == torch.bfloat16 else
+            [("attention", "attn_map_bf16" if dtype == torch.bfloat16 else "attn_map_f32")])
+    assert launched == [forward] + (maps if export else [])
 
 
 @pytest.mark.parametrize("dh", [0, 129, 256])

@@ -13,6 +13,7 @@ from weclip_tpu_torch.core.config import ParConfig
 from weclip_tpu_torch.ops import attention_kernels as ak
 from weclip_tpu_torch.refine import par as par_plain
 from weclip_tpu_torch.refine import par_kernels as pk
+from weclip_tpu_torch.utils import spans
 
 pytestmark = pytest.mark.cuda
 
@@ -164,6 +165,80 @@ def test_attention_fwd_export_takes_long_sequences_bf16(card):
     torch.testing.assert_close(stats, want, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(amap, ak.attention_map_plain(q, k, km, stats), rtol=0,
                                atol=2e-5)
+
+
+# the bf16 self-attention forwards of the benchmark cells, (B, H, L, Dh):
+# ViT-L/14 at scale 1 (K1 on 8 rows, K2 on the others) and 2, ViT-B/16's,
+# and training's 4 crops of 320
+WGMMA_SHAPES = [(8, 16, 1370, 64), (16, 16, 842, 64), (8, 12, 1025, 64), (16, 12, 626, 64),
+                (4, 12, 401, 64)]
+
+
+def _ragged(b, l):
+    """Valid key counts of b images: all, none (a fully masked image), one,
+    one short of a 64-key tile, half, and a spread below L."""
+    counts = [l, 0, 1, l - l % 64 - 1, l // 2]
+    return tuple(counts[i] if i < len(counts) else (l * (i + 1)) // (b + 1) for i in range(b))
+
+
+@pytest.mark.parametrize("b,h,l,dh", WGMMA_SHAPES)
+@pytest.mark.parametrize("export", [True, False])
+def test_wgmma_forward_matches_plain_at_the_cells_shapes(card, b, h, l, dh, export):
+    """The wgmma forward (K1's first launch, K2) at the cells' shapes with
+    ragged key masks: the output against the plain version to the K1/K2
+    tolerance, K1's row statistics as test_attention_fwd_export_takes_long_
+    sequences_bf16 holds them (a max near 0 differs by the scores' last
+    bits: 1e-6 absolute), K1's map from those
+    statistics against its plain version, each valid row of it summing to
+    1, and one count under the design that ran."""
+    assert ak.forward_design(torch.bfloat16, dh) == ak.WGMMA
+    q, k, v, km = _qkv(card, b, h, l, dh, torch.bfloat16, _ragged(b, l))
+    stats = torch.empty((b, h, l, 2), device=card) if export else None
+    before = dict(spans.RECORDER.totals.get(ak.FWD_COUNTER, {}))
+    out, amap = ak.attention_core(q, k, v, km, export_weights=export, stats=stats)
+    after = spans.RECORDER.totals.get(ak.FWD_COUNTER, {})
+    assert after.get(ak.WGMMA, 0) == before.get(ak.WGMMA, 0) + 1
+    assert after.get(ak.MMA, 0) == before.get(ak.MMA, 0)
+    ref, ref_map = ak.attention_core_plain(q, k, v, km, export_weights=export)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert not out[1].any()
+    if not export:
+        return
+    del ref
+    torch.testing.assert_close(amap, ref_map, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(stats, ak.attention_row_stats_plain(q, k, km), rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(amap, ak.attention_map_plain(q, k, km, stats), rtol=0,
+                               atol=2e-5)
+    rows = amap.sum(dim=-1)
+    valid = km.bool() & (km.sum(dim=-1, keepdim=True) > 0)
+    torch.testing.assert_close(rows[valid], torch.ones_like(rows[valid]), rtol=0, atol=1e-5)
+
+
+def test_wgmma_forward_is_deterministic_and_replays_in_a_graph(card):
+    """Two calls give the same bits, and a CUDA graph captured around the
+    call (as the frozen tower is) replays to the eager bits."""
+    b, h, l, dh = 8, 16, 1370, 64
+    q, k, v, km = _qkv(card, b, h, l, dh, torch.bfloat16, _ragged(b, l))
+    stats = torch.empty((b, h, l, 2), device=card)
+    out1, map1 = ak.attention_core(q, k, v, km, export_weights=True, stats=stats)
+    st1 = stats.clone()
+    out2, map2 = ak.attention_core(q, k, v, km, export_weights=True, stats=stats)
+    assert torch.equal(out1, out2) and torch.equal(map1, map2) and torch.equal(st1, stats)
+    k2_out, _ = ak.attention_core(q, k, v, km, export_weights=False)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        g_out, g_map = ak.attention_core(q, k, v, km, export_weights=True)
+        g_k2, _ = ak.attention_core(q, k, v, km, export_weights=False)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g_out, out1) and torch.equal(g_map, map1) and torch.equal(g_k2, k2_out)
 
 
 def test_attention_fwd_export_map_is_deterministic(card):

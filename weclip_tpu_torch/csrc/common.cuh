@@ -1,4 +1,4 @@
-// Shared helpers of the port's CUDA kernels: bf16 packing, the bf16
+// Shared helpers of the port's CUDA kernels: bf16 packing and scaling, the bf16
 // tensor-core product, warp and fragment-row reductions, index
 // clamping, cp.async copies and ldmatrix loads; and (weclip::tc) the
 // split-TF32 and bf16 fragment products with the tiles they read.
@@ -26,6 +26,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two bf16 values x (the first in the low half) -> bf16(float(x) * s)
+__device__ __forceinline__ uint32_t scale2(uint32_t x, float s) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  return pack_bf16(f.x * s, f.y * s);
+}
+
+// eight bf16 values x -> bf16(float(x) * s)
+__device__ __forceinline__ uint4 scale8(uint4 x, float s) {
+  return make_uint4(scale2(x.x, s), scale2(x.y, s), scale2(x.z, s), scale2(x.w, s));
 }
 
 // c += a (16x16, row-major fragments) * b (16x8, column fragments)

@@ -4,7 +4,11 @@
 // loaded with ctypes by weclip_tpu_torch/kernels.py; wrappers in
 // ops/attention_kernels.py.  Under the fp32 score type, and under bf16
 // above head width 128, K1's forward, K2 and the backward run
-// cross_attention.cu's kernels, and K1's map attention.cu's.
+// cross_attention.cu's kernels, and K1's map attention.cu's.  Under bf16
+// at head widths 32, 64 and 128, K1's forward and K2 run
+// hopper_attention.cu's wgmma kernel, which writes the same row
+// statistics for the map kernel here
+// (ops/attention_kernels.py::forward_design).
 //
 // Replaces (weclip_tpu/ops/pallas_attention.py), under bf16:
 //   K1       attention_core_pallas(export_weights=True)   (_attn_kernel; :195, pallas_call :260)
@@ -88,16 +92,6 @@ constexpr float kFloor = -5e29f;     // the all-masked row guard of the max
 
 // the key bias is padded to whole tiles
 __device__ __forceinline__ int padded(int l) { return (l + kTile - 1) / kTile * kTile; }
-
-__device__ __forceinline__ uint32_t scale2(uint32_t x, float s) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-  return pack_bf16(f.x * s, f.y * s);
-}
-
-// eight bf16 values x -> bf16(float(x) * s)
-__device__ __forceinline__ uint4 scale8(uint4 x, float s) {
-  return make_uint4(scale2(x.x, s), scale2(x.y, s), scale2(x.z, s), scale2(x.w, s));
-}
 
 // eight bf16 values of columns [c, c + 8) of a row `ld` wide, zeros at
 // columns >= ld; one 16-byte load where the row is 16-byte aligned

@@ -1,14 +1,20 @@
-// The CoMer CTI cross-attention forward (K6) under bf16 on Hopper's
-// warpgroup tensor-core products (wgmma) and tensor-memory loads (TMA), for
-// sm_90a.  Plain C entry point, loaded with ctypes by
-// weclip_tpu_torch/kernels.py; wrapper ops/attention_kernels.py::
-// cross_attention_core.  Under fp32, and under bf16 above head width 128,
-// K6 is cross_attention.cu's key-tiled forward.
+// The bf16 attention forwards on Hopper's warpgroup tensor-core products
+// (wgmma) and tensor-memory loads (TMA), for sm_90a: the CoMer CTI
+// cross-attention forward (K6), and the self-attention forward of K1 (its
+// first launch, the row statistics) and K2 at the widths and shapes
+// ops/attention_kernels.py::forward_design gives it.  Plain C entry points,
+// loaded with ctypes by weclip_tpu_torch/kernels.py; wrappers
+// ops/attention_kernels.py::cross_attention_core and attention_core.
+// Under fp32, and under bf16 above head width 128, K6 is
+// cross_attention.cu's key-tiled forward; K1 and K2 elsewhere are
+// flash_attention.cu's (bf16) or cross_attention.cu's.
 //
 // Replaces (weclip_tpu/ops/pallas_attention.py), under bf16:
 //   K6  cross_attention_core_pallas   (_attn_kernel, no export; :539, pallas_call :582)
+//   K1  attention_core_pallas(export_weights=True), its forward (:195, pallas_call :260)
+//   K2  attention_core_pallas(export_weights=False)
 //
-// Numerics follow the Pallas kernel and flash_attention.cu's forward: q
+// K6's numerics follow the Pallas kernel and flash_attention.cu's forward: q
 // arrives pre-scaled (scale 1), fp32 scores and softmax, an additive -1e30
 // key bias padded with -1e30 to whole 64-key tiles by the wrapper, the
 // all-masked row guard max(smax, -5e29), denominator >= 1e-30, one sweep
@@ -55,6 +61,36 @@
 // at Dh 320 (q 81,920, three K stages 122,880, three 128-column V stages
 // 49,152, biases, barriers and the alignment), past the 232,448 a block
 // can have (Dh 256 would fit in 214,840).
+//
+// The self-attention forward (K1's first launch, K2).  Numerics are
+// flash_attention.cu's forward: q staged as bf16(float(q) * scale) (TMA
+// brings it unscaled; the consumer warpgroup scales the rows in shared
+// memory once, then fences them over to the products' proxy), fp32
+// scores, the padded -1e30 key bias, the guard max(smax, -5e29), the
+// floor 1e-30, P rounded to bf16 against the running max, normalized after
+// P V, bf16 out (B, H, L, Dh), and under K1 each row's (max, 1/sum) in
+// `stats` for flash_attention.cu's map kernel.  exp(x) is 2^(x log2 e) on
+// the SFU with the product folded into one fma: within a few fp32 ulps of
+// expf, not bit-equal.  Design: K6's data path (a producer warp keeping a
+// ring of four 64-key K/V tiles and their bias slices full with TMA; a
+// consumer warpgroup of 64 query rows; S = q K^T as m64n64k16 from 128-byte
+// swizzled shared memory; P fed back as the register A operand of
+// O += P V), with the softmax taken off the products' path.  At head
+// width 64 each score costs 256 FLOP of products and one exp: the tensor
+// cores retire 3.9e12 scores/s at the bf16 peak, the SFU about 3.7e12
+// exps/s, so a kernel that runs them in turn tops out near half of
+// either.  Within the warpgroup, tile j's scores and tile j - 1's P V are
+// issued as two commit groups; the softmax of tile j waits for the first
+// (wgmma.wait_group 1) and runs under the second, its P kept in fp32 in
+// the score registers until P V has read the last fragments.  A block is
+// one warpgroup of 64 query rows (120 registers, 74 KB of shared memory):
+// three blocks share an SM, and their warpgroups' products and softmaxes
+// interleave.  Two warpgroups of a 128-row block taking turns through
+// named barriers (the order FlashAttention-3 gives them) fit one block to
+// an SM and ran 25% slower on the H100 (245 against 325 TFLOP/s at
+// (8, 16, 1370, 64)); three of a 192-row block, 291 with turns and 292
+// without; q in registers, or two 64-key tiles a step, made ptxas
+// serialize the products; four blocks to an SM spilled.
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 
@@ -72,10 +108,10 @@ constexpr int kThreads = 128 * kConsumers + 32;    // and one producer warp
 constexpr int kMinBlocks = 2;                      // blocks per SM the registers allow (DH <= 64)
 constexpr float kFloor = -5e29f;                   // the all-masked row guard of the max
 
-// shared memory (bytes from a 1024-aligned base): q rows, the K ring, the
-// V ring, the key-bias ring, then the mbarriers (full[kStages],
-// empty[kStages], q)
-template <int DH>
+// shared memory (bytes from a 1024-aligned base): ROWS q rows, the K
+// ring, the V ring, the key-bias ring (STAGES tiles each), then the
+// mbarriers (full[STAGES], empty[STAGES], q)
+template <int DH, int ROWS = kRows, int STAGES = kStages>
 struct Layout {
   static constexpr int kRowBytes = DH * 2;
   static constexpr int kSpan = DH > 64 ? 64 : DH;        // columns of one TMA box
@@ -83,11 +119,11 @@ struct Layout {
   static constexpr int kBoxes = DH / kSpan;              // boxes across a row
   static constexpr int kTile = kKeys * kRowBytes;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kRows * kRowBytes;
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBias = kV + kStages * kTile;
-  static constexpr int kBar = kBias + kStages * kKeys * 4;
-  static constexpr int kBytes = kBar + (2 * kStages + 1) * 8;
+  static constexpr int kK = kQ + ROWS * kRowBytes;
+  static constexpr int kV = kK + STAGES * kTile;
+  static constexpr int kBias = kV + STAGES * kTile;
+  static constexpr int kBar = kBias + STAGES * kKeys * 4;
+  static constexpr int kBytes = kBar + (2 * STAGES + 1) * 8;
   static_assert(kK % 1024 == 0 && kTile % 1024 == 0, "tiles stay on the swizzle period");
 };
 
@@ -167,8 +203,10 @@ __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// until at most N of this warpgroup's committed product groups are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keeps the compiler from moving reads or writes of these registers across
@@ -269,6 +307,36 @@ __device__ __forceinline__ void wgmma_pv<32>(float (&d)[16], const uint32_t* a, 
   wgmma_rs_n32(d, a, b);
 }
 
+// the producer's one thread: the block's `groups` x 64 q rows once, then
+// every 64-key K/V tile and its key-bias slice through a ring of STAGES,
+// each stage refilled once the consumers' warps have released it
+template <typename S, int STAGES>
+__device__ __forceinline__ void produce(uint32_t base, const CUtensorMap* tq,
+                                        const CUtensorMap* tk, const CUtensorMap* tv,
+                                        const float* kbias, int b, int bh, int q0, int groups,
+                                        int ntiles) {
+  const uint32_t bars = base + S::kBar, qbar = bars + 16 * STAGES;
+  mbar_expect_tx(qbar, groups * 64 * S::kRowBytes);
+  for (int i = 0; i < groups; ++i)
+    for (int x = 0; x < S::kBoxes; ++x)
+      tma_load_3d(base + S::kQ + i * 64 * S::kRowBytes + x * S::kBoxBytes, tq, qbar,
+                  x * S::kSpan, q0 + 64 * i, bh);
+  const float* bias = kbias + (size_t)b * ntiles * kKeys;
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % STAGES, round = it / STAGES;
+    const uint32_t full = bars + 8 * s, empty = bars + 8 * (STAGES + s);
+    if (round > 0) mbar_wait(empty, (round - 1) & 1);
+    mbar_expect_tx(full, 2 * S::kTile + kKeys * 4);
+    for (int x = 0; x < S::kBoxes; ++x) {
+      tma_load_3d(base + S::kK + s * S::kTile + x * S::kBoxBytes, tk, full, x * S::kSpan,
+                  it * kKeys, bh);
+      tma_load_3d(base + S::kV + s * S::kTile + x * S::kBoxBytes, tv, full, x * S::kSpan,
+                  it * kKeys, bh);
+    }
+    bulk_load(base + S::kBias + s * kKeys * 4, bias + it * kKeys, kKeys * 4, full);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K6, bf16: one block per (image, head, 128 query rows); warps 0-7 are two
 // consumer warpgroups, warp 8 the producer
@@ -308,27 +376,7 @@ xattn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (warp == 4 * kConsumers) {
-    // producer: one thread issues every copy
-    if (lane == 0) {
-      mbar_expect_tx(qbar, groups * 64 * S::kRowBytes);
-      for (int i = 0; i < groups; ++i)
-        for (int x = 0; x < S::kBoxes; ++x)
-          tma_load_3d(base + S::kQ + i * 64 * S::kRowBytes + x * S::kBoxBytes, &tq, qbar,
-                      x * S::kSpan, q0 + 64 * i, bh);
-      const float* bias = kbias + (size_t)b * ntiles * kKeys;
-      for (int it = 0; it < ntiles; ++it) {
-        const int s = it % kStages, round = it / kStages;
-        if (round > 0) mbar_wait(empty(s), (round - 1) & 1);
-        mbar_expect_tx(full(s), 2 * S::kTile + kKeys * 4);
-        for (int x = 0; x < S::kBoxes; ++x) {
-          tma_load_3d(base + S::kK + s * S::kTile + x * S::kBoxBytes, &tk, full(s),
-                      x * S::kSpan, it * kKeys, bh);
-          tma_load_3d(base + S::kV + s * S::kTile + x * S::kBoxBytes, &tv, full(s),
-                      x * S::kSpan, it * kKeys, bh);
-        }
-        bulk_load(base + S::kBias + s * kKeys * 4, bias + it * kKeys, kKeys * 4, full(s));
-      }
-    }
+    if (lane == 0) produce<S, kStages>(base, &tq, &tk, &tv, kbias, b, bh, q0, groups, ntiles);
     return;
   }
 
@@ -352,7 +400,7 @@ xattn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < DH / 16; ++kk)   // 16 bf16 (32 bytes) of Dh per step
       wgmma_ss_n64(sc, desc<DH>(qa + kstep<DH>(kk)), desc<DH>(kt + kstep<DH>(kk)), kk > 0);
     wg_commit();
-    wg_wait_all();
+    wg_wait<0>();
     fence_regs(sc);
     // sc[4 i + e]: key 8 i + 2 t + (e & 1), row g (e < 2) or g + 8
     const float* bs = reinterpret_cast<const float*>(sm + S::kBias + s * kKeys * 4);
@@ -397,7 +445,7 @@ xattn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int c = 0; c < kKeys / 16; ++c)   // 16 keys (16 V rows) per step
       wgmma_pv<DH>(o, pa + 4 * c, desc<DH>(vt + c * 16 * S::kSpan * 2));
     wg_commit();
-    wg_wait_all();
+    wg_wait<0>();
     fence_regs(o);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(s));   // this warp is done with stage s
@@ -418,6 +466,231 @@ xattn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           make_float2(o[4 * i + 2] * r1, o[4 * i + 3] * r1);
   }
 }
+
+// ---------------------------------------------------------------------------
+// K1's forward and K2, bf16: the self-attention forward on K6's data path,
+// the softmax overlapped with the products.  One block per (image, head,
+// 64 query rows): one consumer warpgroup, then the producer warp.  The
+// kernel is K6's sibling under K6's name in a namespace of its own, so a
+// profile's attention kernels (the benchmark's kernel list) are found by
+// one name whichever of the two runs.
+// ---------------------------------------------------------------------------
+
+constexpr int kSelfStages = 4;                     // K/V tiles in flight
+constexpr int kSelfThreads = 128 + 32;             // one consumer warpgroup, one producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+// named barrier `ID` over `THREADS` threads
+template <int ID, int THREADS>
+__device__ __forceinline__ void bar_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(THREADS) : "memory");
+}
+
+// 2^x on the SFU (subnormal results flushed to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// sc (64 x 64 scores, fp32) = A (64 x DH, shared memory) K^T: one group of
+// DH / 16 products, committed, not waited for
+template <int DH>
+__device__ __forceinline__ void scores(float (&sc)[32], uint32_t qa, uint32_t kt) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    wgmma_ss_n64(sc, desc<DH>(qa + kstep<DH>(kk)), desc<DH>(kt + kstep<DH>(kk)), kk > 0);
+  wg_commit();
+}
+
+// o (64 x DH) += P (bf16 A fragments) V: one group of 4 products, committed
+template <int DH>
+__device__ __forceinline__ void values(float (&o)[DH / 2], const uint32_t (&pa)[kKeys / 4],
+                                       uint32_t vt) {
+#pragma unroll
+  for (int c = 0; c < kKeys / 16; ++c)   // 16 keys (16 V rows) per step
+    wgmma_pv<DH>(o, pa + 4 * c, desc<DH>(vt + c * 16 * Layout<DH>::kSpan * 2));
+  wg_commit();
+}
+
+// The online softmax of one 64-key tile, in place: sc (rows g and g + 8 of
+// each warp's 16; sc[4 i + e] is key 8 i + 2 t + (e & 1), row g + 8 (e >> 1))
+// plus the key bias becomes P = exp(s - max) against the running max m,
+// a = exp(m_old - m) the factor of what came before, l the running sum
+// (this thread's columns).  exp(x) is taken as 2^(x log2 e), the product
+// folded into one fma.
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], const float* bs, int t,
+                                             float& m0, float& m1, float& l0, float& l1,
+                                             float& a0, float& a1) {
+  float n0 = m0, n1 = m1;
+#pragma unroll
+  for (int i = 0; i < kKeys / 8; ++i) {
+    const float b0 = bs[8 * i + 2 * t], b1 = bs[8 * i + 2 * t + 1];
+    sc[4 * i] += b0;
+    sc[4 * i + 1] += b1;
+    sc[4 * i + 2] += b0;
+    sc[4 * i + 3] += b1;
+    n0 = fmaxf(n0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+    n1 = fmaxf(n1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+  }
+  n0 = quad_max(n0);
+  n1 = quad_max(n1);
+  a0 = ex2((m0 - n0) * kLog2e);   // 1 while the max holds
+  a1 = ex2((m1 - n1) * kLog2e);
+  m0 = n0;
+  m1 = n1;
+  const float c0 = n0 * kLog2e, c1 = n1 * kLog2e;
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kKeys / 8; ++i) {
+    sc[4 * i] = ex2(fmaf(sc[4 * i], kLog2e, -c0));
+    sc[4 * i + 1] = ex2(fmaf(sc[4 * i + 1], kLog2e, -c0));
+    sc[4 * i + 2] = ex2(fmaf(sc[4 * i + 2], kLog2e, -c1));
+    sc[4 * i + 3] = ex2(fmaf(sc[4 * i + 3], kLog2e, -c1));
+    s0 += sc[4 * i] + sc[4 * i + 1];
+    s1 += sc[4 * i + 2] + sc[4 * i + 3];
+  }
+  l0 = l0 * a0 + s0;
+  l1 = l1 * a1 + s1;
+}
+
+// P (fp32, in the accumulator layout) as bf16 A fragments: keys [16 c,
+// 16 c + 16) are pa[4 c .. 4 c + 3]
+__device__ __forceinline__ void to_fragments(uint32_t (&pa)[kKeys / 4], const float (&sc)[32]) {
+#pragma unroll
+  for (int i = 0; i < kKeys / 8; ++i) {
+    pa[2 * i] = pack_bf16(sc[4 * i], sc[4 * i + 1]);       // row g
+    pa[2 * i + 1] = pack_bf16(sc[4 * i + 2], sc[4 * i + 3]);   // row g + 8
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void rescale(float (&o)[DH / 2], float a0, float a1) {
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    o[4 * i] *= a0;
+    o[4 * i + 1] *= a0;
+    o[4 * i + 2] *= a1;
+    o[4 * i + 3] *= a1;
+  }
+}
+
+namespace self {
+
+template <int DH, bool STATS>
+__global__ void __launch_bounds__(kSelfThreads, 2)
+xattn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const float* __restrict__ kbias,
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ stats, int H, int L,
+                       float scale) {
+  using S = Layout<DH, 64, kSelfStages>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  const uint32_t bars = base + S::kBar;
+  const auto full = [&](int s) { return bars + 8 * s; };
+  const auto empty = [&](int s) { return bars + 8 * (kSelfStages + s); };
+  const uint32_t qbar = bars + 16 * kSelfStages;
+
+  const int bh = blockIdx.y, b = bh / H, q0 = blockIdx.x * 64;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ntiles = (L + kKeys - 1) / kKeys;
+
+  if (tid == 0) {
+    for (int s = 0; s < kSelfStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4);   // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    if (lane == 0) produce<S, kSelfStages>(base, &tq, &tk, &tv, kbias, b, bh, q0, 1, ntiles);
+    return;
+  }
+
+  // q as bf16(float(q) * scale), in place (the swizzle moves 16-byte
+  // chunks, each scaled alone), then published to the products' (async)
+  // proxy
+  const int w = warp, g = lane >> 2, t = lane & 3;
+  const uint32_t qa = base + S::kQ;
+  mbar_wait(qbar, 0);
+  {
+    uint4* qs = reinterpret_cast<uint4*>(sm + S::kQ);
+    for (int i = tid; i < 64 * S::kRowBytes / 16; i += 128) qs[i] = scale8(qs[i], scale);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_sync<1, 128>();
+  }
+
+  float m0 = kFloor, m1 = kFloor, l0 = 0.f, l1 = 0.f, a0, a1;
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float sc[32];
+  uint32_t pa[kKeys / 4];
+  const auto bias_of = [&](int s) {
+    return reinterpret_cast<const float*>(sm + S::kBias + s * kKeys * 4);
+  };
+
+  // tile 0: its scores, then their softmax
+  mbar_wait(full(0), 0);
+  wg_fence();
+  scores<DH>(sc, qa, base + S::kK);
+  wg_wait<0>();
+  fence_regs(sc);
+  softmax_tile(sc, bias_of(0), t, m0, m1, l0, l1, a0, a1);
+  to_fragments(pa, sc);
+  // tile it: its scores and the previous tile's P V go out together; the
+  // softmax of tile it runs under P V
+  for (int it = 1; it < ntiles; ++it) {
+    const int s = it % kSelfStages, p = (it - 1) % kSelfStages;
+    mbar_wait(full(s), (it / kSelfStages) & 1);
+    rescale<DH>(o, a0, a1);
+    wg_fence();
+    scores<DH>(sc, qa, base + S::kK + s * S::kTile);
+    values<DH>(o, pa, base + S::kV + p * S::kTile);
+    wg_wait<1>();
+    fence_regs(sc);
+    softmax_tile(sc, bias_of(s), t, m0, m1, l0, l1, a0, a1);
+    wg_wait<0>();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(p));   // this warp is done with stage p
+    to_fragments(pa, sc);
+  }
+  rescale<DH>(o, a0, a1);
+  wg_fence();
+  values<DH>(o, pa, base + S::kV + ((ntiles - 1) % kSelfStages) * S::kTile);
+  wg_wait<0>();
+  fence_regs(o);
+
+  const float r0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+  const float r1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+  const int row = q0 + 16 * w + g;
+  const size_t rows0 = (size_t)bh * L;
+  __nv_bfloat16* ob = out + rows0 * DH;
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    const int col = 8 * i + 2 * t;
+    if (row < L)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * DH + col) =
+          __floats2bfloat162_rn(o[4 * i] * r0, o[4 * i + 1] * r0);
+    if (row + 8 < L)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)(row + 8) * DH + col) =
+          __floats2bfloat162_rn(o[4 * i + 2] * r1, o[4 * i + 3] * r1);
+  }
+  if (STATS && t == 0) {   // K1: each row's final (max, 1/sum) for the map kernel
+    float* st = stats + (rows0 + row) * 2;
+    if (row < L) { st[0] = m0; st[1] = r0; }
+    if (row + 8 < L) { st[16] = m1; st[17] = r1; }
+  }
+}
+
+}  // namespace self
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -482,6 +755,40 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* kbi
   return cudaGetLastError();
 }
 
+template <int DH, bool STATS>
+cudaError_t launch_self(const void* q, const void* k, const void* v, const float* kbias,
+                        __nv_bfloat16* out, float* stats, int B, int H, int L, float scale,
+                        cudaStream_t s) {
+  if (encoder() == nullptr) return cudaErrorNotSupported;
+  constexpr int span = Layout<DH>::kSpan;
+  CUtensorMap mq, mk, mv;
+  if (!tensor_map(&mq, q, DH, span, L, B * H) || !tensor_map(&mk, k, DH, span, L, B * H) ||
+      !tensor_map(&mv, v, DH, span, L, B * H))
+    return cudaErrorInvalidValue;
+  constexpr int smem = Layout<DH, 64, kSelfStages>::kBytes + 1024;   // and the alignment
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(self::xattn_fwd_wgmma_kernel<DH, STATS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               smem);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  self::xattn_fwd_wgmma_kernel<DH, STATS>
+      <<<dim3((L + 63) / 64, B * H), kSelfThreads, smem, s>>>(mq, mk, mv, kbias, out, stats, H,
+                                                               L, scale);
+  return cudaGetLastError();
+}
+
+// K1's instance (with statistics) or K2's
+template <int DH>
+cudaError_t launch_width(const void* q, const void* k, const void* v, const float* kbias,
+                         __nv_bfloat16* out, float* stats, int B, int H, int L, float scale,
+                         cudaStream_t s) {
+  return stats ? launch_self<DH, true>(q, k, v, kbias, out, stats, B, H, L, scale, s)
+               : launch_self<DH, false>(q, k, v, kbias, out, stats, B, H, L, scale, s);
+}
+
 }  // namespace
 
 // K6, bf16: q (B, H, Lq, Dh) pre-scaled, k, v (B, H, Lk, Dh), all bf16,
@@ -501,4 +808,21 @@ extern "C" int xattn_fwd_wgmma(const void* q, const void* k, const void* v, cons
   if (Dh < 32) return launch<32, true>(q, k, v, kb, o, B, H, Lq, Lk, Dh, s);
   if (Dh < 64) return launch<64, true>(q, k, v, kb, o, B, H, Lq, Lk, Dh, s);
   return launch<128, true>(q, k, v, kb, o, B, H, Lq, Lk, Dh, s);
+}
+
+// K1's forward and K2, bf16: q (unscaled), k, v (B, H, L, Dh) bf16, 16-byte
+// aligned, Dh 32, 64 or 128; kbias (B, L rounded up to 64) fp32, -1e30 in
+// the padding; out (B, H, L, Dh) bf16; stats (B, H, L, 2) fp32, each row's
+// (max, 1/sum), or null (K2)
+extern "C" int attn_fwd_wgmma(const void* q, const void* k, const void* v, const void* kbias,
+                              void* out, void* stats, int B, int H, int L, int Dh, float scale,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* kb = static_cast<const float*>(kbias);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  float* st = static_cast<float*>(stats);
+  if (Dh == 64) return launch_width<64>(q, k, v, kb, o, st, B, H, L, scale, s);
+  if (Dh == 32) return launch_width<32>(q, k, v, kb, o, st, B, H, L, scale, s);
+  if (Dh == 128) return launch_width<128>(q, k, v, kb, o, st, B, H, L, scale, s);
+  return cudaErrorInvalidValue;
 }

@@ -62,6 +62,9 @@ SIGNATURES = {
         # bf16 q (pre-scaled), k, v, kbias (padded), fp32 out, B, H, Lq, Lk,
         # Dh, stream
         "xattn_fwd_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # bf16 q (unscaled), k, v, kbias (padded), bf16 out, stats (or
+        # None), B, H, L, Dh, scale, stream
+        "attn_fwd_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     },
     "cross_attention": {
         # fp32 q (unscaled), k, v, kbias (padded), out, stats (or None), B,

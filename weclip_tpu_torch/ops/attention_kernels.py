@@ -18,7 +18,8 @@ K1, K2, K3 and K3-rect ``csrc/flash_attention.cu`` (key-tiled, any length;
 K1 is K2's forward with each row's (max, 1/sum) written out, then a map
 kernel that sums P over the heads, ``attention_row_stats_plain`` and
 ``attention_map_plain`` being the two launches' plain versions; K3 reads
-bf16 q, k, v and dO as they come and scales q as it stages it); K6
+bf16 q, k, v and dO as they come and scales q as it stages it); K6, and
+K1's forward and K2 at head widths 32, 64 and 128 (``forward_design``),
 ``csrc/hopper_attention.cu`` (``wgmma`` products on TMA-loaded tiles).
 Under fp32 (every attention call of the fp32 policy, and the eval
 decoder's under the default ``head_dtype``): K2, K6, the backward and K1's
@@ -47,10 +48,21 @@ import torch
 from weclip_tpu_torch import kernels
 from weclip_tpu_torch.core import precision
 from weclip_tpu_torch.ops.attention import MhaParams, qkv_project
+from weclip_tpu_torch.utils import spans
 
 # the widest head of the bf16 kernels of flash_attention.cu and
 # hopper_attention.cu; wider heads run cross_attention.cu's slices
 FLASH_MAX_HEAD_DIM = 128
+
+# The designs of the bf16 self-attention forward (K1's first launch, K2),
+# and the program counter that counts each bf16 call by the one that ran
+# it: WGMMA, hopper_attention.cu's wgmma/TMA kernel; MMA,
+# flash_attention.cu's mma.sync kernel (or, above Dh 128,
+# cross_attention.cu's).  Graph replays count as the calls they replay.
+WGMMA, MMA = "wgmma", "mma"
+FWD_COUNTER = "attention_fwd"
+# the head widths the wgmma forward is built at and checked at on the card
+WGMMA_HEAD_DIMS = (32, 64, 128)
 
 
 def _check_head_dim(name: str, dh: int) -> None:
@@ -139,6 +151,17 @@ def attention_map_plain(q: torch.Tensor, k: torch.Tensor, kmask: torch.Tensor,
     return p.sum(dim=1) * (1.0 / q.shape[1])
 
 
+def forward_design(dtype: torch.dtype, dh: int) -> str:
+    """The design of the self-attention forward at head width ``dh`` in
+    ``dtype``: ``WGMMA`` for bf16 at a width of ``WGMMA_HEAD_DIMS``, else
+    ``MMA`` (every other dtype and width keeps its kernel).  No shape term:
+    on the H100 the wgmma kernel is the faster at every grid timed, down to
+    one block (``chip_smoke.py::check_forward_designs``)."""
+    if dtype != torch.bfloat16 or dh not in WGMMA_HEAD_DIMS:
+        return MMA
+    return WGMMA
+
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kmask: torch.Tensor, export_weights: bool = True,
                    stats: Optional[torch.Tensor] = None
@@ -147,7 +170,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Both take any L and any head width.  K1 is two
     launches: a key-tiled forward that writes each row's (max, 1/sum), then
     the map kernel, which sums P over the heads from them.  ``stats``, a
-    (B, H, L, 2) fp32 CUDA buffer, receives those statistics (K1 only)."""
+    (B, H, L, 2) fp32 CUDA buffer, receives those statistics (K1 only).
+    The bf16 forward's kernel is ``forward_design``'s; each bf16 call counts
+    once under ``FWD_COUNTER``, keyed by the design that ran it."""
     if stats is not None and not (q.is_cuda and export_weights):
         raise ValueError("attention_core: stats are written by K1 on CUDA only")
     if not q.is_cuda:
@@ -176,32 +201,30 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         bias = _padded_key_bias(kmask)
         st = None if stats is None else stats.data_ptr()
-        if bf16 and dh <= FLASH_MAX_HEAD_DIM:
-            kernels.call("flash_attention", "flash_fwd", q.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), bias.data_ptr(), out.data_ptr(), st, b, h, l, dh,
-                         c_scale, stream)
-            if export_weights:
-                kernels.call("flash_attention", "attn_map", q.data_ptr(), k.data_ptr(),
-                             bias.data_ptr(), stats.data_ptr(), amap.data_ptr(), b, h,
-                             l, dh, c_scale, stream)
-        else:
-            # the split-TF32 forward (fp32), or the bf16 one above Dh 128,
-            # scaling q as it stages it; K1 then sums the map from its row
-            # statistics on the same scaled q
-            if bf16:
-                kernels.call("cross_attention", "xattn_fwd_bf16", q.data_ptr(), k.data_ptr(),
-                             v.data_ptr(), bias.data_ptr(), out.data_ptr(), st, b, h, l, l,
-                             dh, c_scale, 0, stream)
-            else:
-                kernels.call("cross_attention", "xattn_fwd", q.data_ptr(), k.data_ptr(),
-                             v.data_ptr(), bias.data_ptr(), out.data_ptr(), st, b, h, l, l,
-                             dh, c_scale, stream)
-            if export_weights:
-                kernels.call("attention", "attn_map_bf16" if bf16 else "attn_map_f32",
-                             q.data_ptr(), k.data_ptr(), bias.data_ptr(), stats.data_ptr(),
-                             amap.data_ptr(), b, h, l, dh, c_scale, stream)
+        design = forward_design(q.dtype, dh)
+        flash = bf16 and dh <= FLASH_MAX_HEAD_DIM
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), st)
+        if design == WGMMA:
+            kernels.call("hopper_attention", "attn_fwd_wgmma", *args, b, h, l, dh, c_scale,
+                         stream)
+        elif flash:
+            kernels.call("flash_attention", "flash_fwd", *args, b, h, l, dh, c_scale, stream)
+        elif bf16:   # above Dh 128, scaling q as it stages it
+            kernels.call("cross_attention", "xattn_fwd_bf16", *args, b, h, l, l, dh, c_scale,
+                         0, stream)
+        else:        # split-TF32
+            kernels.call("cross_attention", "xattn_fwd", *args, b, h, l, l, dh, c_scale,
+                         stream)
+        if export_weights:
+            # the map from the forward's row statistics, on the same scaled q
+            lib, fn = (("flash_attention", "attn_map") if flash else
+                       ("attention", "attn_map_bf16" if bf16 else "attn_map_f32"))
+            kernels.call(lib, fn, q.data_ptr(), k.data_ptr(), bias.data_ptr(),
+                         stats.data_ptr(), amap.data_ptr(), b, h, l, dh, c_scale, stream)
     kernels.count_launch("attention_fwd_export" if export_weights else "attention_fwd",
                          (b, h, l, dh))
+    if bf16:
+        spans.count(FWD_COUNTER, key=design)
     return out, amap
 
 
