@@ -34,11 +34,9 @@ class Context:
     log: object = None    # print function for the earlier lines (stderr)
 
     def cfg_dict(self) -> dict:
-        """The configuration overlay, with the class-feature count the work
-        functions read."""
-        d = copy.deepcopy(self.config["config"])
-        d["num_bg"] = self.config["text"]["num_bg"]
-        return d
+        """What the work functions read of the configuration
+        (``work.config_dict``)."""
+        return work.config_dict(self.config)
 
 
 @dataclass
@@ -108,8 +106,7 @@ def program_config(ctx: Context, dataset: Dict[str, str]):
     """The port's Config for this run: the configuration's overlay, the
     synthetic tree's paths, and the seed as the training seed."""
     from weclip_tpu_torch.core.config import from_dict
-    d = ctx.cfg_dict()
-    d.pop("num_bg")
+    d = copy.deepcopy(ctx.config["config"])
     d.setdefault("dataset", {}).update(dataset)
     d.setdefault("train", {})["seed"] = ctx.seed
     return from_dict(d), d

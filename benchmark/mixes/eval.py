@@ -50,7 +50,8 @@ def run(ctx: Context) -> Run:
         paths = pool_mod.write_tree(root, pool, {"val": names})
         cfg, _ = harness.program_config(ctx, paths)
         policy = precision.make_policy(cfg.precision.compute_dtype)
-        sd = weights.clip_state_dict(seed, ctx.config["config"]["clip"], dev)
+        cfgd = ctx.cfg_dict()
+        sd = weights.clip_state_dict(seed, cfgd["clip"], dev, cfgd["tower"], cfgd["published"])
         fg, bg = weights.class_features(seed, num_fg, ctx.config["text"]["num_bg"],
                                         cfg.clip.embed_dim, dev)
         visual = params_from_state_dict(
@@ -156,8 +157,6 @@ def run(ctx: Context) -> Run:
         ctx.log(f"[window] {n_img} images in {window:.3f} s; peak memory "
                 f"{out.memory_peak_bytes} bytes")
 
-        cfgd = ctx.cfg_dict()
-
         def batch_ops(b):
             exs = [pool[(b * bsz + j) % n_pool] for j in range(bsz)]
             return work.eval_batch(cfgd, [ex["img_raw"].shape[:2] for ex in exs], with_cam,
@@ -189,8 +188,7 @@ def run(ctx: Context) -> Run:
             for b in order:
                 kept[b]["cams"], kept[b]["attn_last"] = starts[b]
                 kept[b]["par"] = pars[b]
-        ref = drive.eval_outputs(ctx.config["config"], sd, fg, bg, values, batches,
-                                 with_cam, max_ori, dev,
+        ref = drive.eval_outputs(cfgd, sd, fg, bg, values, batches, with_cam, max_ori, dev,
                                  follow=[walks[b] for b in order] if with_cam else None)
         numbers = check.eval_numbers([kept[b] for b in order], ref, cfg.clip.patch_size,
                                      with_cam)

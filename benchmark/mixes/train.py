@@ -58,7 +58,8 @@ def run(ctx: Context) -> Run:
         mesh = meshlib.make_mesh(cfg.mesh.data_parallel, cfg.mesh.model_parallel)
         if dev.startswith("cuda"):
             precision.strict_matmul()
-        sd = weights.clip_state_dict(seed, ctx.config["config"]["clip"], dev)
+        cfgd = ctx.cfg_dict()
+        sd = weights.clip_state_dict(seed, cfgd["clip"], dev, cfgd["tower"], cfgd["published"])
         fg, bg = weights.class_features(seed, num_fg, ctx.config["text"]["num_bg"],
                                         cfg.clip.embed_dim, dev)
         visual = params_from_state_dict(
@@ -201,7 +202,6 @@ def run(ctx: Context) -> Run:
         steps_ms = [1e3 * (b - a) for a, b, keep in zip(ends, ends[1:], timed) if keep]
         out.step_p95_ms = float(np.percentile(steps_ms, 95))
         out.host = {"input_wait": waits, "step_call": calls}
-        cfgd = ctx.cfg_dict()
         if stretch is not None:
             out.stretch, out.stretch_units = stretch, len(traced_mcs)
             out.stretch_ops = [o for mc in traced_mcs for o in work.train_step(cfgd, mc)]
@@ -218,9 +218,8 @@ def run(ctx: Context) -> Run:
         harness.free(dev)
         from benchmark.reference import drive
         t_ref = time.perf_counter()
-        ref = drive.train_readings(ctx.config["config"] | {"train": cfg_dict["train"]},
-                                   sd, fg, bg, values, pool, CHECKED_STEPS, dev,
-                                   follow=captured)
+        ref = drive.train_readings(cfgd | {"train": cfg_dict["train"]}, sd, fg, bg, values,
+                                   pool, CHECKED_STEPS, dev, follow=captured)
         numbers = check.train_numbers(captured, ref)
         ctx.log(f"[reference] {time.perf_counter() - t_ref:.3f} s; losses program "
                 f"{captured['loss']} reference {ref['loss']}")

@@ -23,7 +23,7 @@ import time
 
 import numpy as np
 
-from benchmark import check, faults, harness, pool as pool_mod, weights
+from benchmark import check, faults, harness, pool as pool_mod, weights, work
 from benchmark.spec import Spec
 
 
@@ -35,13 +35,14 @@ def control_numbers(spec: Spec, cell_name: str, seed: int, device: str = "cuda")
 
     cell = spec.workload(cell_name)
     config, traffic = spec.config(cell["config"]), spec.traffic(cell["traffic"])
-    cfg_dict = config["config"]
+    cfg_dict = work.config_dict(config)
     num_fg = cfg_dict["dataset"]["num_classes"] - 1
     if device.startswith("cuda"):
         precision.strict_matmul()
     pool = pool_mod.make_pool(seed, traffic["pool_images"], traffic["sizes"],
                               traffic["classes_per_image"], num_fg, device)
-    sd = weights.clip_state_dict(seed, cfg_dict["clip"], device)
+    sd = weights.clip_state_dict(seed, cfg_dict["clip"], device, cfg_dict["tower"],
+                                 cfg_dict["published"])
     fg, bg = weights.class_features(seed, num_fg, config["text"]["num_bg"],
                                     cfg_dict["clip"]["embed_dim"], device)
     shapes = [(p, tuple(t.shape)) for p, t in weights.leaf_paths(

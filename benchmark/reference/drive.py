@@ -21,39 +21,25 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from benchmark.reference import compaction, engine, optimizer, precision, step, transforms, vit, weclip
+from benchmark import towers
+from benchmark.reference import compaction, engine, optimizer, precision, step, transforms
+from benchmark.reference import vit, weclip
 from benchmark.reference.config import Config, from_dict
 
 
 # -- state --------------------------------------------------------------------
 
-def visual_from_state_dict(sd: Dict[str, torch.Tensor], layers: int) -> Dict:
-    """The vision tree of an OpenAI-layout state dict (blocks stacked)."""
-    pre = "visual.transformer.resblocks"
-
-    def stack(name):
-        return torch.stack([sd[f"{pre}.{i}.{name}"].float() for i in range(layers)])
-
-    blocks = {
-        "ln_1": {"g": stack("ln_1.weight"), "b": stack("ln_1.bias")},
-        "attn": {"in_w": stack("attn.in_proj_weight"), "in_b": stack("attn.in_proj_bias"),
-                 "out_w": stack("attn.out_proj.weight"), "out_b": stack("attn.out_proj.bias")},
-        "ln_2": {"g": stack("ln_2.weight"), "b": stack("ln_2.bias")},
-        "mlp": {"fc_w": stack("mlp.c_fc.weight"), "fc_b": stack("mlp.c_fc.bias"),
-                "proj_w": stack("mlp.c_proj.weight"), "proj_b": stack("mlp.c_proj.bias")},
-    }
-    f = lambda k: sd[k].float()
-    return {"conv1_w": f("visual.conv1.weight"), "class_embedding": f("visual.class_embedding"),
-            "positional_embedding": f("visual.positional_embedding"),
-            "ln_pre": {"g": f("visual.ln_pre.weight"), "b": f("visual.ln_pre.bias")},
-            "blocks": blocks,
-            "ln_post": {"g": f("visual.ln_post.weight"), "b": f("visual.ln_post.bias")},
-            "proj": f("visual.proj")}
-
-
-def frozen_state(sd, fg, bg, cfg: Config) -> Dict:
-    return {"visual": visual_from_state_dict(sd, cfg.clip.vision_layers),
-            "logit_scale": sd["logit_scale"].float(), "fg_text": fg.float(),
+def frozen_state(sd, fg, bg, cfg: Config, tower: str = "openai_clip",
+                 published: dict = None) -> Dict:
+    """The frozen tree: the vision tree of ``tower`` (its module of
+    ``reference/towers/``, kept under ``visual["tower"]``) from the state
+    dict and the configuration's ``published`` sizes, the logit scale and
+    the class features.  A caller that names no tower, as the port's
+    patch-14 tests, gets OpenAI's."""
+    module = towers.load(tower, reference=True)
+    visual = module.tree(sd, cfg.clip, published)
+    visual["tower"] = module
+    return {"visual": visual, "logit_scale": sd["logit_scale"].float(), "fg_text": fg.float(),
             "bg_text": bg.float()}
 
 
@@ -134,7 +120,7 @@ def train_readings(cfg_dict: dict, sd, fg, bg, values, pool, steps: int, device,
     """``steps`` training steps from the benchmark's values on the stream's
     first batches: each step's loss, forward outputs (``seg`` logits, the
     walk's ``refined`` CAMs, the pseudo ``labels``), the chain's start
-    (GradCAM's ``cams``, block 11's head-mean map ``attn_last``), its PAR
+    (GradCAM's ``cams``, the last block's head-mean map ``attn_last``), its PAR
     scores ``par`` and the bucket's label table ``lut``, each
     leaf's first gradient (as AdamW holds it after one step) and its change
     after ``steps`` steps, and the batches' images and class sets.
@@ -142,11 +128,13 @@ def train_readings(cfg_dict: dict, sd, fg, bg, values, pool, steps: int, device,
     ``follow`` (another run's readings): train against its pseudo labels,
     and make ``tail_par`` PAR scores from its ``refined`` CAMs with this
     chain's tail, so that the steps follow that run past the chain, whose argmax
-    and box thresholds part two runs at rounding's distance."""
+    and box thresholds part two runs at rounding's distance.  ``cfg_dict``
+    is the configuration's ``work.config_dict``: its ``tower`` and
+    ``published`` sizes go to ``frozen_state``."""
     cfg = from_dict(cfg_dict)
     pc = cfg.precision
     policy = precision.make_policy(pc.compute_dtype, pc.param_dtype, pc.softmax_dtype)
-    frozen = frozen_state(sd, fg, bg, cfg)
+    frozen = frozen_state(sd, fg, bg, cfg, cfg_dict["tower"], cfg_dict["published"])
     params = trainable(cfg, values)
     leaves = step.param_leaves(params)
     start = [t.detach().clone() for t in leaves]
@@ -262,15 +250,18 @@ def eval_outputs(cfg_dict: dict, sd, fg, bg, values, batches: Sequence[Sequence[
                  follow: Sequence[torch.Tensor] = None) -> List[Dict]:
     """Per batch of examples: the scale-1 logits (single and flip-averaged),
     the scale-2 flip-averaged logits, the msc logits at the output canvas,
-    and with the CAM chain GradCAM's ``cams``, block 11's head-mean map
+    and with the CAM chain GradCAM's ``cams``, the last block's head-mean map
     ``attn_last`` and the token ``valid`` mask, the walk's ``refined``
     CAMs, the PAR scores (B, 1 + MC, Co, Co), the bucket's label table (B,
     1 + MC), the ``labels`` and, where ``follow`` gives another run's
     refined CAMs a batch, the ``tail_par`` PAR scores this chain's tail
-    makes from them."""
+    makes from them.  ``cfg_dict`` is the configuration's
+    ``work.config_dict``: its ``tower`` and ``published`` sizes go to
+    ``frozen_state``, which takes OpenAI's where it names none."""
     cfg = from_dict(cfg_dict)
     policy = precision.make_policy(cfg.precision.compute_dtype)
-    frozen = frozen_state(sd, fg, bg, cfg)
+    frozen = frozen_state(sd, fg, bg, cfg, cfg_dict.get("tower", "openai_clip"),
+                          cfg_dict.get("published"))
     params = trainable(cfg, values)
     prep = _Prep(make_prep(cfg, max_ori), cfg.eval.resize_long)
     pe = frozen["visual"]["positional_embedding"].float().cpu().numpy()

@@ -1,23 +1,26 @@
 """GradCAM on the last CLIP block (a frozen copy of the plain math of
 weclip_tpu_torch/cam/gradcam.py).
 
-The gradient is taken at block 11's ln_1 output; the loss is the softmax
-probability of each class seed over [present fg ; all bg] (absent classes
-masked to -inf before the softmax).
+The gradient is taken at the last block's tap (the tower's ``tap``: ln_1's
+output in OpenAI's block); the loss is the softmax probability of each
+class seed over [present fg ; all bg] (absent classes masked to -inf before
+the softmax).  The tap, the last block and the image feature are the
+tower's (``reference/towers/``); the pooling, the text side and the CAMs
+are WeCLIP's.
 
 The JAX package linearizes once per image and vmaps the pullback over the
-class seeds.  Here the ln_1 output ``a0`` is expanded over the class bucket
-to (B*MC, L, D) and ONE backward runs on the sum of the seeded
-probabilities: each row's probability depends on its own row only, so the
-gradient of the sum is every seed's gradient at once (the program runs the
-attention backward, K3, as one launch at (B*MC, H, L, Dh); here it is
-plain autograd).  The price is the block-11 forward on
-B*MC rows instead of B.
+class seeds.  Here the tap ``a0`` is expanded over the class bucket to
+(B*MC, L, D) and ONE backward runs on the sum of the seeded probabilities:
+each row's probability depends on its own row only, so the gradient of the
+sum is every seed's gradient at once (the program runs the attention
+backward, K3, as one launch at (B*MC, H, L, Dh); here it is plain
+autograd).  The price is the last block's forward on B*MC rows instead of
+B.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,21 +31,26 @@ from benchmark.reference import vit
 
 class CamOutputs(NamedTuple):
     cams: torch.Tensor        # (B, MC, P) min-max normalized CAMs, padded grid
-    attn_last: torch.Tensor   # (B, L, L) head-mean attention of block 11
+    attn_last: torch.Tensor   # (B, L, L) head-mean attention of the last block
     probs: torch.Tensor       # (B, T) masked softmax over [fg ; bg]
 
 
-def _image_text_probs(params, x_out: torch.Tensor, text_features: torch.Tensor,
-                      text_mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """ln_post -> masked mean-pool -> proj -> L2 norm -> scaled cosine ->
-    masked softmax, batched: x_out (N, L, D), text_mask (N, T), valid (N, L)."""
-    x = vit.layer_norm(x_out, params["ln_post"]["g"], params["ln_post"]["b"])
+def _image_text_probs(params, x_out: torch.Tensor, logit_scale: torch.Tensor,
+                      text_features: torch.Tensor, text_mask: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """The tower's image feature (masked mean-pool over the valid patch
+    tokens) -> L2 norm -> scaled cosine -> masked softmax, batched: x_out
+    (N, L, D), text_mask (N, T), valid (N, L)."""
     pmask = valid[:, 1:].float()
-    pooled = (x[:, 1:] * pmask[..., None]).sum(dim=1) / pmask.sum(dim=1, keepdim=True).clamp_min(1.0)
-    feat = precision.matmul(pooled, params["proj"].float())
+
+    def pool(x):
+        return ((x[:, 1:] * pmask[..., None]).sum(dim=1)
+                / pmask.sum(dim=1, keepdim=True).clamp_min(1.0))
+
+    feat = params["tower"].out(params, x_out, pool)
     feat = feat / torch.linalg.vector_norm(feat, dim=-1, keepdim=True)
     tf = text_features / torch.linalg.vector_norm(text_features, dim=-1, keepdim=True)
-    logits = torch.exp(params["logit_scale"]) * precision.matmul(feat, tf.t())
+    logits = torch.exp(logit_scale) * precision.matmul(feat, tf.t())
     logits = logits.masked_fill(~text_mask, float("-inf"))
     return torch.softmax(logits, dim=-1)
 
@@ -61,33 +69,34 @@ def _minmax_valid(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 def acts_and_grads(
     visual_params,
     logit_scale: torch.Tensor,
-    x11: torch.Tensor,              # (B, L, D) input tokens to block 11
+    x11: torch.Tensor,              # (B, L, D) input tokens to the last block
     text_features: torch.Tensor,    # (T, E) rows [fg ; bg]
     text_mask: torch.Tensor,        # (B, T) bool: present fg + all bg
     valid: torch.Tensor,            # (B, L)
     class_idx: torch.Tensor,        # (B, MC) class ids
     cfg: ClipConfig,
     policy: precision.Policy = precision.DEFAULT,
+    *,
+    grid: Tuple[int, int],          # the token grid (rows, columns)
 ):
-    """Block 11's ln_1 output ``a0`` (B, L, D), the gradient of each class
-    seed's probability at it (B, MC, L, D), block 11's head-mean attention
+    """The last block's tap ``a0`` (B, L, D), the gradient of each class
+    seed's probability at it (B, MC, L, D), the block's head-mean attention
     (B, L, L) and the probabilities (B, T): one backward over the class
     bucket expanded onto the batch."""
     b, l, d = x11.shape
     mc = class_idx.shape[1]
-    block11 = vit.block_params(visual_params["blocks"], cfg.vision_layers - 1)
-    p = {"ln_post": visual_params["ln_post"], "proj": visual_params["proj"],
-         "logit_scale": logit_scale}
+    tower = visual_params["tower"]
+    block = vit.block_params(visual_params["blocks"], cfg.vision_layers - 1)
 
     with torch.no_grad():
-        a0 = vit.layer_norm(x11, block11["ln_1"]["g"], block11["ln_1"]["b"])
+        a0 = tower.tap(block, x11)
     rep = lambda t: t.repeat_interleave(mc, dim=0)
     with torch.enable_grad():
         a = rep(a0).requires_grad_(True)
-        x_out, attn_w = vit.block_forward_from_ln1(block11, rep(x11), a,
-                                                   cfg.vision_heads,
-                                                   valid=rep(valid), policy=policy)
-        probs = _image_text_probs(p, x_out, text_features, rep(text_mask), rep(valid))
+        x_out, attn_w = tower.block_from_tap(block, rep(x11), a, cfg.vision_heads,
+                                             rep(valid), grid, policy)
+        probs = _image_text_probs(visual_params, x_out, logit_scale, text_features,
+                                  rep(text_mask), rep(valid))
         seeds = torch.nn.functional.one_hot(class_idx.reshape(-1),
                                             text_features.shape[0]).to(probs.dtype)
         (grads,) = torch.autograd.grad((probs * seeds).sum(), a)
@@ -98,7 +107,7 @@ def acts_and_grads(
 def gradcam_batch(
     visual_params,
     logit_scale: torch.Tensor,
-    x11: torch.Tensor,              # (B, L, D) input tokens to block 11
+    x11: torch.Tensor,              # (B, L, D) input tokens to the last block
     text_features: torch.Tensor,    # (T, E) rows [fg ; bg]
     text_mask: torch.Tensor,        # (B, T) bool: present fg + all bg
     valid: torch.Tensor,            # (B, L)
@@ -107,6 +116,8 @@ def gradcam_batch(
     policy: precision.Policy = precision.DEFAULT,
     class_idx: Optional[torch.Tensor] = None,   # (B, MC) class ids
     num_patches: Optional[int] = None,
+    *,
+    grid: Tuple[int, int],          # the token grid (rows, columns)
 ) -> CamOutputs:
     """GradCAMs for the given foreground classes of every image.  Returns
     cams (B, MC, P) on the grid block [1:1+P]."""
@@ -115,7 +126,7 @@ def gradcam_batch(
         class_idx = torch.arange(num_fg, device=x11.device).expand(b, num_fg)
     a0, grads, attn_last, probs = acts_and_grads(
         visual_params, logit_scale, x11, text_features, text_mask, valid,
-        class_idx, cfg, policy)
+        class_idx, cfg, policy, grid=grid)
 
     pe = 1 + (num_patches if num_patches is not None else l - 1)
     vp = valid[:, 1:pe]

@@ -1,13 +1,13 @@
-"""Frozen CLIP ViT-B/16 and its text encoder (a frozen copy of the plain math of
-weclip_tpu_torch/models/clip/vit.py).
+"""The frozen CLIP image tower's shared loop, and the primitives and the
+pre-LN block that the towers and WeCLIP's decoder share (a frozen copy of
+the plain math of weclip_tpu_torch/models/clip/vit.py).
 
 Parameters are nested dicts of tensors with the transformer blocks stacked
-on a leading axis, exactly as in the JAX package (so ``convert.py`` carries
-them across unchanged).  Tokens live on a padded grid with a validity mask;
-per-layer tokens and head-averaged attention maps are returned for the
-pseudo-label chain.  The text encoder runs once at start-up to embed the
-class prompts (models/clip/prompts.py), on the plain attention with a
-causal bias.
+on a leading axis, exactly as in the JAX package.  What a tower does before,
+inside and after its blocks is its own module's (``reference/towers/``);
+the frozen forward here runs it over a padded grid with a validity mask and
+returns the per-layer tokens and head-averaged attention maps that the
+pseudo-label chain reads.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from benchmark.reference import precision
 from benchmark.reference.config import ClipConfig
-from benchmark.reference.attention import MhaParams, mha_auto, mha_with_weights
+from benchmark.reference.attention import MhaParams, mha_auto
 from benchmark.reference.resize import _linear_matrix
 
 Params = Dict[str, Any]
@@ -73,7 +73,7 @@ def mlp_forward(p: Params, x: torch.Tensor, policy: precision.Policy) -> torch.T
     return y.to(x.dtype)
 
 
-def _mha_params(p: Params) -> MhaParams:
+def mha_params(p: Params) -> MhaParams:
     a = p["attn"]
     return MhaParams(a["in_w"], a["in_b"], a["out_w"], a["out_b"])
 
@@ -88,35 +88,17 @@ def block_forward(
     allow_kernel: bool = True,
     attn_bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
-    """Pre-LN residual attention block.  Returns (x_out, head-mean attention
-    (B, L, L) or None, ln_1 output).  The attention is the plain,
+    """Pre-LN residual attention block (WeCLIP's decoder block, and OpenAI's
+    CLIP block).  Returns (x_out, head-mean attention (B, L, L) or None,
+    ln_1 output).  The attention is the plain,
     differentiable formulation whatever ``allow_kernel`` says."""
     a = layer_norm(x, p["ln_1"]["g"], p["ln_1"]["b"])
-    attn_out, attn_w = mha_auto(a, _mha_params(p), n_heads, valid=valid,
+    attn_out, attn_w = mha_auto(a, mha_params(p), n_heads, valid=valid,
                                 policy=policy, want_weights=want_attn,
                                 allow_kernel=allow_kernel, attn_bias=attn_bias)
     x = x + attn_out
     x = x + mlp_forward(p["mlp"], layer_norm(x, p["ln_2"]["g"], p["ln_2"]["b"]), policy)
     return x, attn_w, a
-
-
-def block_forward_from_ln1(
-    p: Params,
-    x_in: torch.Tensor,
-    a: torch.Tensor,
-    n_heads: int,
-    valid: Optional[torch.Tensor] = None,
-    policy: precision.Policy = precision.DEFAULT,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Block forward with the ln_1 output ``a`` given: gradients w.r.t.
-    ``a`` are the GradCAM tap.  On CUDA the attention is the differentiable
-    kernel pair (K1 forward, K3 backward); on CPU the plain formulation
-    under autograd."""
-    mha = _mha_params(p)
-    attn_out, attn_w = mha_with_weights(a, mha, n_heads, valid=valid, policy=policy)
-    x = x_in + attn_out
-    x = x + mlp_forward(p["mlp"], layer_norm(x, p["ln_2"]["g"], p["ln_2"]["b"]), policy)
-    return x, attn_w
 
 
 # ---------------------------------------------------------------------------
@@ -165,10 +147,10 @@ def grid_valid_mask(gh: int, gw: int, pad_gh: int, pad_gw: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 class VisionFeatures(NamedTuple):
-    """Per-layer products of the frozen 11-block forward.  Consumers slice
-    the patch block as ``[1:1+P]``."""
-    layer_tokens: torch.Tensor   # (11, B, L, D) policy compute dtype
-    layer_attn: torch.Tensor     # (11 or 0, k, L, L) fp32
+    """Per-layer products of the frozen forward (all blocks but the last:
+    N of them).  Consumers slice the patch block as ``[1:1+P]``."""
+    layer_tokens: torch.Tensor   # (N, B, L, D) policy compute dtype
+    layer_attn: torch.Tensor     # (N or 0, k, L, L) fp32
     valid: torch.Tensor          # (B, L) bool
 
 
@@ -183,7 +165,9 @@ def vision_forward_frozen(
     with_attn: bool = True,
     attn_rows: Optional[int] = None,
 ) -> VisionFeatures:
-    """Frozen CLIP forward over blocks 0..10 with feature/attention export.
+    """Frozen CLIP forward over all blocks but the last, with feature and
+    attention export, through the tower ``params["tower"]`` (its module of
+    ``reference/towers/``).
 
     img (B, 3, H, W) normalized; pos_emb (B or 1, L, D); valid (B, L).
     ``with_attn=False`` skips the map export (layer_attn has a zero-length
@@ -191,12 +175,10 @@ def vision_forward_frozen(
     the msc-flip engine's flipped half never consumes its maps, so those
     rows run the export-free kernel (K2) and the first k the export kernel
     (K1)."""
+    tower = params["tower"]
     b = img.shape[0]
-    x = patchify(img, params["conv1_w"], cfg.patch_size, policy)
-    cls = params["class_embedding"].float()[None, None, :].expand(b, 1, x.shape[-1])
-    x = torch.cat([cls, x], dim=1) + pos_emb.float()
-    x = layer_norm(x, params["ln_pre"]["g"], params["ln_pre"]["b"])
-    x = x.masked_fill(~valid.bool()[..., None], 0.0)
+    grid = (img.shape[-2] // cfg.patch_size, img.shape[-1] // cfg.patch_size)
+    x = tower.embed(params, img, pos_emb, valid, grid, cfg, policy)
     # the residual stream runs in the compute dtype
     x = x.to(policy.compute_dtype)
 
@@ -208,10 +190,9 @@ def vision_forward_frozen(
         x1, x2, v1, v2 = x[:k], x[k:], valid[:k], valid[k:]
         xs1, xs2, attn_l = [], [], []
         for bp in blocks:
-            x1, attn_w, _ = block_forward(bp, x1, cfg.vision_heads, valid=v1,
-                                          policy=policy, want_attn=True)
-            x2, _, _ = block_forward(bp, x2, cfg.vision_heads, valid=v2,
-                                     policy=policy, want_attn=False)
+            x1, attn_w = tower.block_forward(bp, x1, cfg.vision_heads, v1, grid, policy,
+                                             True)
+            x2, _ = tower.block_forward(bp, x2, cfg.vision_heads, v2, grid, policy, False)
             xs1.append(x1)
             xs2.append(x2)
             attn_l.append(attn_w)
@@ -220,8 +201,8 @@ def vision_forward_frozen(
     else:
         xs_l, attn_l = [], []
         for bp in blocks:
-            x, attn_w, _ = block_forward(bp, x, cfg.vision_heads, valid=valid,
-                                         policy=policy, want_attn=with_attn)
+            x, attn_w = tower.block_forward(bp, x, cfg.vision_heads, valid, grid, policy,
+                                            with_attn)
             xs_l.append(x)
             attn_l.append(attn_w)
         xs = torch.stack(xs_l)
@@ -231,24 +212,8 @@ def vision_forward_frozen(
     return VisionFeatures(xs, attns, valid)
 
 
-# ---------------------------------------------------------------------------
-# text encoder
-# ---------------------------------------------------------------------------
-
-
-# ---------------------------------------------------------------------------
-# initialization (CLIP's scheme)
-# ---------------------------------------------------------------------------
-
-
 def stack_blocks(blocks) -> Params:
     first = blocks[0]
     if isinstance(first, dict):
         return {k: stack_blocks([bl[k] for bl in blocks]) for k in first}
     return torch.stack(blocks)
-
-
-
-
-
-

@@ -125,7 +125,7 @@ def pseudo_label_chain(
                             feats.layer_tokens[-1], text_features, text_mask,
                             feats.valid, num_fg, cfg.clip, policy,
                             class_idx=cls_idx,
-                            num_patches=batch_valid.shape[1] - 1)
+                            num_patches=batch_valid.shape[1] - 1, grid=grid_hw)
     with torch.no_grad():
         fused_attn = fuse(cam_out.attn_last)
         valid_pb = batch_valid[:, 1:].bool()

@@ -5,8 +5,11 @@ Everything that belongs to one of them sits in a file of its own under this
 folder, so a later change adds files and edits none:
 
 - ``configs/<config>.json``: the configuration (its source, published sizes,
-  ``assumed`` sizes, ``reduced`` keys, and the overlay onto the port's
-  ``Config()`` under ``config``);
+  ``assumed`` sizes, ``reduced`` keys, its vision ``tower``, and the overlay
+  onto the port's ``Config()`` under ``config``);
+- ``towers/<tower>.py`` and ``reference/towers/<tower>.py``: a vision
+  tower, what the benchmark draws and counts of it and its plain math (see
+  ``towers/__init__.py``);
 - ``traffic/<traffic>.json``: a traffic mix, the parameters that the driver
   ``mixes/<mix>.py`` named by its ``mix`` key reads;
 - ``workloads/<cell>.json``: a cell's configuration, traffic, ``why`` and
@@ -24,6 +27,8 @@ import json
 import re
 from pathlib import Path
 from typing import List, Optional
+
+from benchmark import towers
 
 HERE = Path(__file__).resolve().parent
 
@@ -91,6 +96,19 @@ class Spec:
         return out
 
     # -- validation ----------------------------------------------------------
+    def _tower_errors(self, name: str, config: dict) -> List[str]:
+        """A configuration file names its tower, whose two files exist, and
+        has the ``published`` block the tower reads."""
+        tower = config.get("tower")
+        if not isinstance(tower, str) or not towers.NAME.match(tower):
+            return [f"config {name}: tower {tower!r}"]
+        errs = [f"config {name}: no {folder}/{tower}.py"
+                for folder in ("towers", "reference/towers")
+                if not (self.folder / folder / f"{tower}.py").exists()]
+        if not isinstance(config.get("published"), dict):
+            errs.append(f"config {name}: no published block")
+        return errs
+
     def validate(self) -> List[str]:
         """Every problem found (empty when the benchmark is well formed)."""
         b, errs = self.bench, []
@@ -117,6 +135,8 @@ class Spec:
                 name_ok(k, f"config {c['name']} reduced")
             if not (self.folder.parent / c["file"]).exists():
                 errs.append(f"config {c['name']}: no file {c['file']}")
+            else:
+                errs += self._tower_errors(c["name"], _load_json(self.folder.parent / c["file"]))
             if set(c) != {"name", "source", "file", "reduced", "why"}:
                 errs.append(f"config {c['name']}: keys {sorted(c)}")
         config_names = {c["name"] for c in b.get("configs", [])}

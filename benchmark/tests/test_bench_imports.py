@@ -33,11 +33,10 @@ RUN_THE_REFERENCE = """
 import json, sys
 sys.path.insert(0, {copy!r})
 import torch
-from benchmark import pool, weights
+from benchmark import pool, weights, work
 from benchmark.reference import drive
-cfg = json.load(open({config!r}))
-d = cfg["config"]
-sd = weights.clip_state_dict(3, d["clip"], "cpu")
+d = work.config_dict(json.load(open({config!r})))
+sd = weights.clip_state_dict(3, d["clip"], "cpu", d["tower"], d["published"])
 fg, bg = weights.class_features(3, 5, 4, d["clip"]["embed_dim"], "cpu")
 shapes = [(p, tuple(t.shape)) for p, t in weights.leaf_paths(drive.weclip.init_trainable_params(
     torch.Generator().manual_seed(0), drive.from_dict(d), "cpu"))]
@@ -71,7 +70,7 @@ def test_the_reference_loads_nothing_of_the_port(tmp_path):
 
 
 def test_the_reference_sources_import_nothing_of_the_port():
-    for path in (ROOT / "benchmark" / "reference").glob("*.py"):
+    for path in (ROOT / "benchmark" / "reference").rglob("*.py"):
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

@@ -4,63 +4,33 @@ by part, at a tiny size on the CPU."""
 
 from __future__ import annotations
 
-import numpy as np
+from pathlib import Path
+
 import pytest
 import torch
-from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark import weights, work
-from benchmark.reference import comer, drive, gradcam, heads, precision, vit
+from benchmark import work
+from benchmark.reference import comer, drive, heads, precision
 from benchmark.tests import tiny
 
-
-def _flops(fn) -> int:
-    with FlopCounterMode(display=False) as counter:
-        fn()
-    return counter.get_total_flops()
-
-
-def _setup(comer_on: bool = False):
-    cfg_file = tiny.tiny_config("t", comer_on)
-    d = cfg_file["config"]
-    d["num_bg"] = 4
-    cfg = drive.from_dict(d)
-    sd = weights.clip_state_dict(1, d["clip"], "cpu")
-    fg, bg = weights.class_features(1, 5, 4, d["clip"]["embed_dim"], "cpu")
-    shapes = [(p, tuple(t.shape)) for p, t in weights.leaf_paths(
-        drive.weclip.init_trainable_params(torch.Generator().manual_seed(0), cfg, "cpu"))]
-    params = drive.trainable(cfg, weights.trainable_values(1, shapes, "cpu"))
-    return d, cfg, drive.frozen_state(sd, fg, bg, cfg), params
-
-
-def _inputs(cfg, b: int, g: int):
-    l = g * g + 1
-    img = torch.randn(b, 3, g * 16, g * 16)
-    pe = drive.vit.pos_emb_host(np.random.default_rng(0).standard_normal(
-        (197, cfg.clip.vision_width)).astype(np.float32), g, g, g, g)
-    return img, torch.from_numpy(pe)[None], torch.ones(b, l, dtype=torch.bool)
+# every tower of the benchmark, each counted against its own reference
+TOWERS = sorted(p.stem for p in (Path(__file__).resolve().parents[1] / "towers").glob("*.py")
+                if p.stem != "__init__")
 
 
 def _sum(ops):
     return sum(o.flops for o in ops)
 
 
+@pytest.mark.parametrize("tower", TOWERS)
 @pytest.mark.parametrize("export", [True, False])
-def test_vit_forward(export):
-    d, cfg, frozen, _ = _setup()
-    b, g = 2, 4
-    img, pe, valid = _inputs(cfg, b, g)
-    got = _flops(lambda: vit.vision_forward_frozen(frozen["visual"], img, pe, valid, cfg.clip,
-                                                   precision.DEFAULT, with_attn=export))
-    lens = [g * g + 1] * b
-    want = _sum(work.patch_embed(d["clip"], lens, "bf16")
-                + work.vit_blocks(d["clip"], lens, "bf16", [export] * b,
-                                  d["clip"]["vision_layers"] - 1))
+def test_vit_forward(tower, export):
+    got, want = tiny.vit_flops(tower, export)
     assert got == want
 
 
 def test_heads_forward_and_backward():
-    d, cfg, frozen, params = _setup()
+    d, cfg, frozen, params = tiny.reference_setup()
     b, p = 2, 16
     tokens = torch.randn(cfg.clip.vision_layers - 1, b, p, cfg.clip.vision_width)
     valid = torch.ones(b, p)
@@ -73,29 +43,21 @@ def test_heads_forward_and_backward():
         aff = drive.weclip.aff.gram_affinity(fused, valid)
         return seg.sum() + aff.sum()
 
-    assert _flops(fwd) == _sum(work.heads(d, [p] * b, backward=False))
+    assert tiny.flops(fwd) == _sum(work.heads(d, [p] * b, backward=False))
     leaves = drive.step.param_leaves(params["head"])
     for t in leaves:
         t.requires_grad_(True)
-    assert _flops(lambda: fwd().backward()) == _sum(work.heads(d, [p] * b, backward=True))
+    assert tiny.flops(lambda: fwd().backward()) == _sum(work.heads(d, [p] * b, backward=True))
 
 
-def test_gradcam_forward_and_backward():
-    d, cfg, frozen, _ = _setup()
-    b, g, mc = 2, 4, 3
-    l = g * g + 1
-    x11 = torch.randn(b, l, cfg.clip.vision_width).bfloat16()
-    text = torch.cat([frozen["fg_text"], frozen["bg_text"]])
-    mask = torch.ones(b, text.shape[0], dtype=torch.bool)
-    got = _flops(lambda: gradcam.gradcam_batch(
-        frozen["visual"], frozen["logit_scale"], x11, text, mask, torch.ones(b, l, dtype=torch.bool),
-        5, cfg.clip, precision.DEFAULT, class_idx=torch.zeros(b, mc, dtype=torch.long)))
-    want = _sum(work.gradcam(d["clip"], [l] * b, [mc] * b, text.shape[0], "bf16"))
+@pytest.mark.parametrize("tower", TOWERS)
+def test_gradcam_forward_and_backward(tower):
+    got, want = tiny.gradcam_flops(tower)
     assert got == want
 
 
 def test_comer_forward_and_backward():
-    d, cfg, frozen, params = _setup(comer_on=True)
+    d, cfg, frozen, params = tiny.reference_setup(comer=True)
     b, g = 2, 4
     img = torch.randn(b, 3, g * 16, g * 16)
     tokens = torch.randn(cfg.clip.vision_layers - 1, b, g * g, cfg.clip.vision_width).bfloat16()
@@ -106,10 +68,10 @@ def test_comer_forward_and_backward():
                                    precision.DEFAULT).float().sum()
 
     items = [(g * 16, g * 16, g * g)] * b
-    assert _flops(fwd) == _sum(work.comer(d, items, backward=False))
+    assert tiny.flops(fwd) == _sum(work.comer(d, items, backward=False))
     for t in drive.step.param_leaves(params["comer"]):
         t.requires_grad_(True)
-    assert _flops(lambda: fwd().backward()) == _sum(work.comer(d, items, backward=True))
+    assert tiny.flops(lambda: fwd().backward()) == _sum(work.comer(d, items, backward=True))
 
 
 def test_least_time_takes_the_larger_bound():

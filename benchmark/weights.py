@@ -1,9 +1,10 @@
 """Seeded weights, made on the device in a few large draws.
 
-- the CLIP vision tower in OpenAI's state-dict layout (``visual.*`` keys,
-  fp32), trained-like LayerNorms (gain about 1, bias about 0.1); the text
-  tower is never run (the class features are seeded unit vectors), so it is
-  a one-block stub of width 8 that only fills the layout's text keys;
+- the CLIP vision tower, drawn by the configuration's tower
+  (``towers/<tower>.py``) in its checkpoint's state-dict layout
+  (``visual.*`` keys, fp32); the text tower is never run (the class
+  features are seeded unit vectors), so it is a one-block stub of width 8
+  that only fills the layout's text keys;
 - unit-norm foreground and background class features;
 - the trainable tree, one value per leaf of the shapes the port's
   ``init_trainable_params`` gives: norm gains 1 + 0.1 n, biases 0.02 n,
@@ -21,12 +22,14 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from benchmark import towers
+
 # background prompt-table sizes of the reference's class tables
 NUM_BG = {"voc": 25, "coco": 23}
 
 
-def _flat_normal(gen: torch.Generator, specs: List[Tuple[str, tuple, float, float]],
-                 device) -> Dict[str, torch.Tensor]:
+def flat_normal(gen: torch.Generator, specs: List[Tuple[str, tuple, float, float]],
+                device) -> Dict[str, torch.Tensor]:
     """{name: mean + std * n} over one draw of sum(numel) normals."""
     sizes = [math.prod(s) for _, s, _, _ in specs]
     flat = torch.randn(sum(sizes), generator=gen, device=device)
@@ -37,35 +40,22 @@ def _flat_normal(gen: torch.Generator, specs: List[Tuple[str, tuple, float, floa
     return out
 
 
-def clip_state_dict(seed: int, clip: dict, device) -> Dict[str, torch.Tensor]:
-    """The vision tower of ``clip`` (the configuration's ``clip`` sizes) in
-    OpenAI's key layout, plus a width-8 text stub and the logit scale."""
-    w, layers, patch = clip["vision_width"], clip["vision_layers"], clip["patch_size"]
-    embed, grid = clip["embed_dim"], 224 // clip["patch_size"]
-    specs = [
-        ("visual.class_embedding", (w,), 0.0, w ** -0.5),
-        ("visual.positional_embedding", (grid * grid + 1, w), 0.0, w ** -0.5),
-        ("visual.proj", (w, embed), 0.0, w ** -0.5),
-        ("visual.conv1.weight", (w, 3, patch, patch), 0.0, (3 * patch * patch) ** -0.5),
-        ("visual.ln_pre.weight", (w,), 1.0, 0.1), ("visual.ln_pre.bias", (w,), 0.0, 0.1),
-        ("visual.ln_post.weight", (w,), 1.0, 0.1), ("visual.ln_post.bias", (w,), 0.0, 0.1),
-    ]
-    for i in range(layers):
-        p = f"visual.transformer.resblocks.{i}."
-        specs += [
-            (p + "attn.in_proj_weight", (3 * w, w), 0.0, w ** -0.5),
-            (p + "attn.in_proj_bias", (3 * w,), 0.0, 0.02),
-            (p + "attn.out_proj.weight", (w, w), 0.0, w ** -0.5),
-            (p + "attn.out_proj.bias", (w,), 0.0, 0.02),
-            (p + "mlp.c_fc.weight", (4 * w, w), 0.0, w ** -0.5),
-            (p + "mlp.c_fc.bias", (4 * w,), 0.0, 0.02),
-            (p + "mlp.c_proj.weight", (w, 4 * w), 0.0, (4 * w) ** -0.5),
-            (p + "mlp.c_proj.bias", (w,), 0.0, 0.02),
-            (p + "ln_1.weight", (w,), 1.0, 0.1), (p + "ln_1.bias", (w,), 0.0, 0.1),
-            (p + "ln_2.weight", (w,), 1.0, 0.1), (p + "ln_2.bias", (w,), 0.0, 0.1),
-        ]
-    gen = torch.Generator(device=device).manual_seed(_seed(seed, 1))
-    sd = _flat_normal(gen, specs, device)
+def generator(seed: int, stream: int, device) -> torch.Generator:
+    """The generator of one of the run's draws (``stream``: 1 the image
+    tower, 2 the class features, 3 the trainable values)."""
+    return torch.Generator(device=device).manual_seed(_seed(seed, stream))
+
+
+def clip_state_dict(seed: int, clip: dict, device, tower: str = "openai_clip",
+                    published: dict = None) -> Dict[str, torch.Tensor]:
+    """The vision tower of ``clip`` (the configuration's ``clip`` sizes),
+    drawn by the module of ``towers/`` named ``tower`` from the
+    configuration's ``published`` sizes, plus a width-8 text stub in
+    OpenAI's layout and the logit scale.  A caller that names no tower, as
+    the port's patch-14 tests, gets OpenAI's, the one the port's loader
+    reads."""
+    sd = towers.load(tower).state_dict(seed, clip, published, device)
+    embed = clip["embed_dim"]
     tw = 8
     stub = {"token_embedding.weight": (4, tw), "positional_embedding": (4, tw),
             "text_projection": (tw, embed), "ln_final.weight": (tw,),
@@ -85,8 +75,8 @@ def clip_state_dict(seed: int, clip: dict, device) -> Dict[str, torch.Tensor]:
 
 def class_features(seed: int, num_fg: int, num_bg: int, embed: int, device):
     """(fg (num_fg, embed), bg (num_bg, embed)) unit-norm rows."""
-    gen = torch.Generator(device=device).manual_seed(_seed(seed, 2))
-    t = torch.randn((num_fg + num_bg, embed), generator=gen, device=device)
+    t = torch.randn((num_fg + num_bg, embed), generator=generator(seed, 2, device),
+                    device=device)
     t = t / t.norm(dim=-1, keepdim=True)
     return t[:num_fg].contiguous(), t[num_fg:].contiguous()
 
@@ -115,8 +105,7 @@ def trainable_values(seed: int, shapes: List[Tuple[str, tuple]], device
     """{path: value} for the trainable leaves ``shapes`` ((path, shape) in
     tree order), from one draw."""
     specs = [(p, tuple(s), *_leaf_rule(p, tuple(s))) for p, s in shapes]
-    gen = torch.Generator(device=device).manual_seed(_seed(seed, 3))
-    return _flat_normal(gen, specs, device)
+    return flat_normal(generator(seed, 3, device), specs, device)
 
 
 def fill_tree(tree, values: Dict[str, torch.Tensor], prefix: str = ""):

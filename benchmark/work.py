@@ -2,10 +2,11 @@
 the cell's shapes, never from which kernel ran.
 
 Counted: the matmul, convolution and attention products the algorithm needs
-(the frozen ViT forward of every view, GradCAM's block-11 forward and its
-backward to block 11's input over the class bucket, the heads, the decoder
+(the frozen ViT forward of every view, GradCAM's last-block forward and its
+backward to the block's tap over the class bucket, the heads, the decoder
 and CoMer forward, and backward in training, the affinity products of the
-pseudo-label chain), and PAR's elementwise multiply-adds.  Not counted:
+pseudo-label chain), and PAR's elementwise multiply-adds.  A tower block's
+products are its tower's own (``towers/<tower>.py``, ``block_products``).  Not counted:
 recomputation, resizes done as interpolation matrices, normalisations,
 softmaxes, losses and the optimizer's elementwise update.  Bytes: each input
 byte read once and each output byte written once, per call.  Only the
@@ -23,8 +24,11 @@ H100 SXM's published dense peaks at its 700 W limit.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Iterable, List, Sequence, Tuple
+
+from benchmark import towers
 
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 494.7e12, "fp32_fma": 67e12}
 PEAK_BYTES = 3.35e12
@@ -81,15 +85,30 @@ def _attn(rows: int, heads: int, lq: int, lk: int, dh: int, dt: str,
     return Op("attention", flops, byts, dt)
 
 
-def vit_blocks(clip: dict, lens: Sequence[int], dt: str, export: Sequence[bool],
+def config_dict(config: dict) -> dict:
+    """What the functions here read of a configuration file: its overlay
+    onto the port's ``Config``, with the class-feature count ``num_bg``, the
+    ``tower`` and the ``published`` sizes beside it."""
+    d = copy.deepcopy(config["config"])
+    d["num_bg"] = config["text"]["num_bg"]
+    d["tower"], d["published"] = config["tower"], copy.deepcopy(config["published"])
+    return d
+
+
+def _block(cfg: dict, rows: int, length: int) -> List[Tuple[int, int, int]]:
+    """The matrix products of one block of the configuration's tower."""
+    return towers.load(cfg["tower"]).block_products(cfg["clip"], cfg["published"], rows,
+                                                    length)
+
+
+def vit_blocks(cfg: dict, lens: Sequence[int], dt: str, export: Sequence[bool],
                blocks: int) -> List[Op]:
     """``blocks`` frozen ViT blocks over one row per token length in
     ``lens`` (CLS included); ``export[i]``: row i writes its head-mean map."""
-    d, h = clip["vision_width"], clip["vision_heads"]
+    d, h = cfg["clip"]["vision_width"], cfg["clip"]["vision_heads"]
     ops = []
     for l, ex in zip(lens, export):
-        ops += [_mm(l, d, 3 * d, dt, blocks), _mm(l, d, d, dt, blocks),
-                _mm(l, d, 4 * d, dt, blocks), _mm(l, 4 * d, d, dt, blocks)]
+        ops += [_mm(m, k, n, dt, blocks) for m, k, n in _block(cfg, 1, l)]
         ops += [_attn(1, h, l, l, d // h, dt, map_out=ex)] * blocks
     return ops
 
@@ -99,24 +118,24 @@ def patch_embed(clip: dict, lens: Sequence[int], dt: str) -> List[Op]:
     return [_mm(l - 1, 3 * p * p, d, dt) for l in lens]
 
 
-def gradcam(clip: dict, lens: Sequence[int], mcs: Sequence[int], n_text: int,
+def gradcam(cfg: dict, lens: Sequence[int], mcs: Sequence[int], n_text: int,
             dt: str) -> List[Op]:
-    """Block 11 forward over each image's class rows (``mcs``: the classes
-    each image holds), the image head,
-    and the backward to block 11's ln_1 output (input gradients only: the
-    tower is frozen), then the CAM weights' product."""
+    """The last block's forward over each image's class rows (``mcs``: the
+    classes each image holds), the image head, and the backward to the
+    block's tap, the input of its first products (input gradients only:
+    the tower is frozen), then the CAM weights' product."""
+    clip = cfg["clip"]
     d, h, e = clip["vision_width"], clip["vision_heads"], clip["embed_dim"]
     ops = []
     for l, r in zip(lens, mcs):
-        ops += [_mm(r * l, d, 3 * d, dt), _mm(r * l, d, d, dt),
-                _mm(r * l, d, 4 * d, dt), _mm(r * l, 4 * d, d, dt),
-                _attn(r, h, l, l, d // h, dt, map_out=True)]
+        products = _block(cfg, r, l)
+        ops += [_mm(m, k, n, dt) for m, k, n in products]
+        ops.append(_attn(r, h, l, l, d // h, dt, map_out=True))
         ops += [_mm(r, d, e, "fp32"), _mm(r, e, n_text, "fp32")]
-        # backward: the same products' input gradients
-        ops += [_mm(r, n_text, e, "fp32"), _mm(r, e, d, "fp32"),
-                _mm(r * l, d, 4 * d, dt), _mm(r * l, 4 * d, d, dt),
-                _mm(r * l, d, d, dt), _attn(r, h, l, l, d // h, dt, backward=True),
-                _mm(r * l, 3 * d, d, dt)]
+        # backward: the same products' input gradients, the last first
+        ops += [_mm(r, n_text, e, "fp32"), _mm(r, e, d, "fp32")]
+        ops += [_mm(m, n, k, dt) for m, k, n in reversed(products)]
+        ops.append(_attn(r, h, l, l, d // h, dt, backward=True))
         ops.append(_mm(r, d, l - 1, "fp32"))
     return ops
 
@@ -217,7 +236,8 @@ def _attn_bwd_of(o: Op) -> Op:
 
 
 def train_step(cfg: dict, mcs: Sequence[int]) -> List[Op]:
-    """One training step at the configuration's batch and crop; ``mcs``:
+    """One training step at the configuration's batch and crop (``cfg``:
+    the configuration's ``config_dict``); ``mcs``:
     the classes each image of the batch holds (the CAM chain needs those,
     not the padded class bucket the program runs)."""
     clip, ds = cfg["clip"], cfg["dataset"]
@@ -228,8 +248,8 @@ def train_step(cfg: dict, mcs: Sequence[int]) -> List[Op]:
     n_text = ds["num_classes"] - 1 + cfg["num_bg"]
     lens = [l] * b
     ops = patch_embed(clip, lens, dt)
-    ops += vit_blocks(clip, lens, dt, [True] * b, clip["vision_layers"] - 1)
-    ops += gradcam(clip, lens, mcs, n_text, dt)
+    ops += vit_blocks(cfg, lens, dt, [True] * b, clip["vision_layers"] - 1)
+    ops += gradcam(cfg, lens, mcs, n_text, dt)
     ops += chain([p] * b, mcs, [crop * crop] * b, cfg["par"])
     ops += heads(cfg, [p] * b, backward=True)
     if cfg["comer"]["enabled"]:
@@ -239,7 +259,8 @@ def train_step(cfg: dict, mcs: Sequence[int]) -> List[Op]:
 
 def eval_batch(cfg: dict, sizes: Sequence[Tuple[int, int]], with_cam: bool,
                mcs: Sequence[int]) -> List[Op]:
-    """One msc-flip batch of images of original ``sizes`` (h, w): scale 1
+    """One msc-flip batch (``cfg``: the configuration's ``config_dict``) of
+    images of original ``sizes`` (h, w): scale 1
     and its flip with the CAM chain on the unflipped half where
     ``with_cam`` (``mcs``: the classes each image holds), scale 0.75 and its flip, seg only."""
     clip, ev, ds = cfg["clip"], cfg["eval"], cfg["dataset"]
@@ -266,13 +287,13 @@ def eval_batch(cfg: dict, sizes: Sequence[Tuple[int, int]], with_cam: bool,
     for lens, ps, hw, export in ((l1, p1, hw1, with_cam), (l2, p2, hw2, False)):
         two = lens + lens
         ops += patch_embed(clip, two, dt)
-        ops += vit_blocks(clip, two, dt, [export] * len(lens) + [False] * len(lens),
+        ops += vit_blocks(cfg, two, dt, [export] * len(lens) + [False] * len(lens),
                           clip["vision_layers"] - 1)
         ops += heads(cfg, ps + ps, backward=False)
         if cfg["comer"]["enabled"]:
             ops += comer(cfg, [(h, w, q) for (h, w), q in zip(hw, ps)] * 2,
                          backward=False)
     if with_cam:
-        ops += gradcam(clip, l1, mcs, n_text, dt)
+        ops += gradcam(cfg, l1, mcs, n_text, dt)
         ops += chain(p1, mcs, px, cfg["par"])
     return ops
